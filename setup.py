@@ -5,12 +5,15 @@ setup(
     version="0.1.0",
     description="TPU-native hierarchical genome assembler "
                 "(JAX/XLA/Pallas re-design of the FALCON/HGAP engine)",
-    packages=find_packages(include=["falcon_tpu", "falcon_tpu.*"]),
+    packages=find_packages(include=["falcon_tpu", "falcon_tpu.*",
+                                    "falcon_tpu_torch", "falcon_tpu_torch.*"]),
+    package_data={"falcon_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     entry_points={
         "console_scripts": [
             "ftpu-run = falcon_tpu.pipeline.driver:main",
+            "ftpu-torch-run = falcon_tpu_torch.pipeline.driver:main",
             "fc_run = falcon_tpu.pipeline.driver:main",
             "ftpu-supervise = falcon_tpu.pipeline.supervise:main",
             "fc_consensus = falcon_tpu.mains.consensus:main",

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu).
 
-nvcc compiles every csrc/*.cu into one shared library with a plain C
-interface for sm_90a, at first use, into falcon_tpu_torch/_build/ (git
-ignores it); a source or header newer than the library triggers a rebuild,
+At first use, one nvcc per csrc/*.cu source, all started together,
+compiles it for sm_90a into falcon_tpu_torch/_build/ (git ignores it), and
+a last nvcc links the objects into one shared library with a plain C
+interface; a source or header newer than the library triggers a rebuild,
 the way falcon_tpu/ops/native.py rebuilds its host library.  The library is
 loaded with ctypes.  A missing nvcc or a failed build raises.
 
@@ -39,25 +40,45 @@ def _nvcc():
 
 def build():
     """Compile csrc/*.cu into LIB_PATH if it is missing or older than a
-    source.  Returns the seconds spent compiling (0.0 when up to date);
-    nvcc's output, -Xptxas -v register and shared-memory counts included,
-    goes to LOG_PATH."""
+    source: one nvcc per source in parallel, then one link.  Returns the
+    seconds spent (0.0 when up to date); nvcc's output, -Xptxas -v register
+    and shared-memory counts included, goes to LOG_PATH."""
     sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
     newest = max(os.path.getmtime(p) for p in
                  sources + glob.glob(os.path.join(SRC_DIR, "*.cuh")))
     if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.tmp.%d" % (LIB_PATH, os.getpid())
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp] + sources
+    nvcc = _nvcc()
+    tag = ".%d" % os.getpid()
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + tag + ".o")
+            for src in sources]
+    cmds = [[nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler",
+             "-fPIC", "-Xptxas", "-v", "-c", src, "-o", obj]
+            for src, obj in zip(sources, objs)]
+    tmp = LIB_PATH + tag
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)
+              if p.returncode]
+    if not failed:
+        cmds.append([nvcc, "-shared", "-o", tmp] + objs)
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        outs.append(link.stdout + link.stderr)
+        if link.returncode:
+            failed.append((cmds[-1], link.returncode, outs[-1]))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.unlink(obj)
     with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s" % (proc.returncode,
-                                                     proc.stderr))
+        for c, o in zip(cmds, outs):
+            f.write(" ".join(c) + "\n" + o)
+    if failed:
+        c, rc, o = failed[0]
+        raise RuntimeError("nvcc failed (%d): %s\n%s" % (rc, " ".join(c), o))
     os.replace(tmp, LIB_PATH)
     return time.time() - t0
 
@@ -75,6 +96,13 @@ def lib():
         so.ftt_tb_fwd.restype = i
         so.ftt_tb_bwd.argtypes = [p, p, i, i, i, p, p, p]
         so.ftt_tb_bwd.restype = i
+        so.ftt_tags.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                ctypes.c_float, p]
+        so.ftt_tags.restype = i
+        so.ftt_cns_scan.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
+        so.ftt_cns_scan.restype = i
+        so.ftt_cns_walk.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p]
+        so.ftt_cns_walk.restype = i
         so.ftt_error_string.argtypes = [i]
         so.ftt_error_string.restype = ctypes.c_char_p
         _lib = so

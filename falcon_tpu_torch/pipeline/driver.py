@@ -8,6 +8,8 @@ artifacts it keeps, and replaces only what reaches JAX there:
   _aligner        the port's make_device_aligner(W=256); no host fallback
   _overlap_store  the single-host block-pair triangle, no all-gather
   phase0          consensus through the port's run_consensus_device
+                  (FTPU_CNS_DP=1: the device-DP path; its DP batches per
+                  T bucket go into timings as phase0_cns_dp_batches)
   run             FTPU_PROFILE=<dir> maps to torch.profiler; the device's
                   busy time and idle share over the run's total go into
                   timings.json (device_busy)
@@ -268,10 +270,14 @@ class Pipeline(ref.Pipeline):
 
             live = (g for g in groups(done_groups) if g is not None)
             if use_dev_cns:
-                LOG.info("phase0: device consensus (falcon_tpu_torch)")
+                dev = DeviceCns(device=self.device)
+                LOG.info("phase0: device consensus (falcon_tpu_torch), %s "
+                         "path", "device-DP" if dev.use_dp else "host-MSA")
                 emitted = run_consensus_device(
-                    live, ccfg, out_f, dev=DeviceCns(device=self.device),
-                    progress_cb=save_progress)
+                    live, ccfg, out_f, dev=dev, progress_cb=save_progress)
+                if dev.use_dp:
+                    self.timings["phase0_cns_dp_batches"] = dict(
+                        sorted(dev.dp_batches.items()))
             else:
                 emitted = cns_runner.run_consensus(
                     ((sid, [(rid, seq) for rid, seq, _ in items])

@@ -38,18 +38,25 @@ def _write_run(G, coverage, mean_len):
     write_cfg("fc_run.cfg", G)
 
 
-@pytest.mark.parametrize("G,coverage,mean_len", [
-    (10_000, 16, 3500),
-    pytest.param(40_000, 18, 6000, marks=pytest.mark.slow),
+@pytest.mark.parametrize("G,coverage,mean_len,dp", [
+    pytest.param(10_000, 16, 3500, False, id="10000-16-3500"),
+    pytest.param(10_000, 16, 3500, True, id="10000-16-3500-dp"),
+    pytest.param(40_000, 18, 6000, False, marks=pytest.mark.slow,
+                 id="40000-18-6000"),
 ])
-def test_pipeline_matches_jax(tmp_path, monkeypatch, G, coverage, mean_len):
+def test_pipeline_matches_jax(tmp_path, monkeypatch, G, coverage, mean_len,
+                              dp):
+    """dp: FTPU_CNS_DP=1 for both packages, so phase-0 consensus runs the
+    device-DP path in each."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("FTPU_USE_PALLAS", "0")     # JAX on the CPU: XLA
+    monkeypatch.setenv("FTPU_CNS_DP", "1" if dp else "0")
     _write_run(G, coverage, mean_len)
     JaxPipeline("fc_run.cfg", str(tmp_path / "jax"), use_device=True).run()
     port = Pipeline("fc_run.cfg", str(tmp_path / "torch"), device="cpu")
     port.run()
     assert 0 < port.timings["phase0_occupancy"] < 1
+    assert ("phase0_cns_dp_batches" in port.timings) == dp
     for name in ARTIFACTS:
         ref = (tmp_path / "jax" / name).read_bytes()
         got = (tmp_path / "torch" / name).read_bytes()
@@ -58,8 +65,9 @@ def test_pipeline_matches_jax(tmp_path, monkeypatch, G, coverage, mean_len):
 
 
 def test_port_imports_no_jax():
-    """Every falcon_tpu_torch module, and a tiny run of the extension
-    twin, in a fresh interpreter: no jax module comes in with them."""
+    """Every falcon_tpu_torch module, and tiny runs of the extension and
+    consensus-scan twins, in a fresh interpreter: no jax module comes in
+    with them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         before = set(sys.modules)
@@ -70,10 +78,15 @@ def test_port_imports_no_jax():
             if not m.name.endswith("__main__"):
                 importlib.import_module(m.name)
         from falcon_tpu_torch.ops.align_device import extend_batch
+        from falcon_tpu_torch.ops import cns_dp
         q = torch.zeros((2, 64), dtype=torch.int8)
         n = torch.full((2,), 64, dtype=torch.int32)
         assert extend_batch(q, n, q, n, W=32).tolist() == [[64] * 2,
                                                           [64] * 2, [0] * 2]
+        msa = cns_dp.add_self_tags(cns_dp.alloc_msa(1, 8, 3, "cpu"),
+                                   q[:1, :8], n[:1], 8)
+        bp, cov, gb_s, gb_t, gb_d, gb_b = cns_dp.consensus_scan(msa, 1, 8, 3)
+        assert (gb_s.tolist(), gb_t.tolist()) == ([4.0], [7])
         new = set(sys.modules) - before
         jax = sorted(m for m in new if m == "jax" or m.startswith("jax."))
         assert not jax, jax

@@ -14,9 +14,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
             bit-equal on (i, j, d) at W = 256 and W = 64, L = 1024, 4096,
             16384; then bit-equal and timed at the (B, L) the pipeline's
             extender launches at L = 1024 and 8192
-  k2        K2 + K3 (alignment with traceback) against their plain twin,
-            bit-equal on (i, j, d, packed moves, bases) at the consensus
-            shapes; then both timed
+  k2        K2 (forward DP, two-bit trace) against band_sweep on the cells
+            each row swept, K3 (walk) against walk_back on the twin's
+            trace, and the pair against align_tb_batch, all bit-equal, at
+            the (B, L) DeviceCns._batch_for launches at L = 1024 and 16384
+            and at (1024, 1024) and (256, 16384); K2 and K3 timed apart,
+            each with its bound
   pipeline  the port's Pipeline on a simulated genome (24x coverage, 9 kb
             mean reads, 8% error), host-MSA consensus: timings, occupancy,
             kernel launch counts (K1-K3 must be > 0, K4-K6 0), contigs,
@@ -29,9 +32,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
             smallest and largest T bucket the DP pipeline ran, with G from
             DeviceCns._dp_group_cap; then each timed
 
-The line before the last is one JSON object describing every kernel; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device the
-script exits non-zero before printing either.  It imports no JAX.
+Every timing line carries the kernel's bound: the larger of its bytes
+(each input once, each output once) over 3.35 TB/s and its int32 operations
+(this run's cells times the operations per cell counted from the source)
+over 64 lanes x 132 SMs x the SM clock nvidia-smi reported during the
+phase.  A bound above the kernel's time fails the run.  The timing line of
+a kernel that is one dependent chain (K3, K5, K6) also carries the chain's
+floor, steps times the latency of the memory its design reads per step;
+the two latencies are assumed constants of this script, not measurements,
+so those floors are marked `assumed` and stay out of the `kernels` line.
+
+With FTPU_PROFILE=<absolute dir> both pipelines run under torch.profiler
+and a `_device_time` line lists each run's device time by kernel.
+
+An `imports` line reports that no jax and no falcon_tpu module was loaded
+(else the run fails).  The line before the last is one JSON object
+describing every kernel; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device the script exits non-zero before printing either.
 """
 import argparse
 import json
@@ -40,6 +57,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -68,12 +86,80 @@ def cuda_ms(fn, reps=1, warm=True):
     return out, e0.elapsed_time(e1) / reps
 
 
+PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
+INT32_LANES = 64 * 132          # int32 lanes per clock on the card
+# int32 operations per DP cell: K1 counted from csrc/band_dp.cuh (adds,
+# mins, compares, selects), K2 from cuobjdump -sass of an interior step of
+# csrc/tb_sweep.cuh (119 instructions for 8 cells)
+OPS_PER_CELL = {"K1": 15, "K2": 15}
+OPS_PER_WALK_STEP = 30          # K3, csrc/align_tb.cu, per walked step
+# assumed latencies of a dependent read, in SM clocks, for the chain floors
+SMEM_LATENCY_CLK = 30           # shared memory
+GLOBAL_LATENCY_CLK = 600        # device memory (a miss to HBM)
+
+
+class ClockSampler:
+    """SM clock (MHz) as nvidia-smi reports it, sampled every 100 ms by one
+    child process for as long as the object lives; peak() is the highest
+    sample since the last mark()."""
+
+    def __init__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+        self.start = 0
+
+    def _read(self):
+        for ln in self.proc.stdout:
+            if ln.strip().isdigit():
+                self.samples.append(int(ln))
+
+    def mark(self):
+        self.start = len(self.samples)
+
+    def peak(self):
+        got = self.samples[self.start:] or self.samples[-1:]
+        if not got:
+            raise SystemExit("nvidia-smi reported no SM clock")
+        return max(got)
+
+    def close(self):
+        self.proc.terminate()
+        self.proc.wait()
+
+
+def bound_ms(nbytes, ops, clock_mhz):
+    """(least milliseconds the card could take, which resource sets it) for
+    work of nbytes through device memory and ops int32 operations."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / (INT32_LANES * clock_mhz * 1e6) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chain_ms(steps, latency_clk, clock_mhz):
+    """Floor of one dependent chain under an assumed latency: steps x
+    latency, in milliseconds."""
+    return steps * latency_clk / (clock_mhz * 1e6) * 1e3
+
+
+def share_of_bound(what, ms, bnd):
+    """bnd / ms; a bound above the measured time is a fault of the bound."""
+    if bnd > ms:
+        raise SystemExit("%s: bound %.4f ms above its time %.4f ms"
+                         % (what, bnd, ms))
+    return bnd / ms
+
+
 def make_pairs(rng, B, L, W, edge=True):
     """[B, L] q/t code planes of read-vs-read extension tasks: t random,
     q = t at 8-15% error (equal substitutions, insertions, deletions),
-    lengths in [L/2, L].  With edge, rows 0-4 are: both sides empty,
-    q empty, t empty, a full-length pair, and a pair whose path drifts
-    off the band (a W-base insertion in q)."""
+    lengths in [L/2, L].  With edge, rows 0-5 are: both sides empty,
+    q empty, t empty, a full-length pair, a pair whose path drifts off
+    the band (a W-base insertion in q), and a pair of 150 bases."""
     q = np.full((B, L), 4, np.int8)
     t = np.full((B, L), 5, np.int8)
     ql = np.zeros(B, np.int32)
@@ -111,6 +197,10 @@ def make_pairs(rng, B, L, W, edge=True):
         ql[4] = len(qq)
         t[4, :len(base)] = base
         tl[4] = len(base)
+        q[5, 150:] = 4
+        t[5, 150:] = 5
+        ql[5] = min(ql[5], 150)
+        tl[5] = 150
     dev = torch.device("cuda")
     return [torch.from_numpy(a).to(dev) for a in (q, ql, t, tl)]
 
@@ -134,7 +224,8 @@ def phase_env():
         cuda=torch.version.cuda, python=sys.version.split()[0],
         nvcc=[ln for ln in nvcc.splitlines() if "release" in ln][0],
         device_count=torch.cuda.device_count(),
-        host_native=simcheck.native.available())
+        host_native=simcheck.native.available(),
+        host_native_dir=simcheck.native.BUILD_DIR)
     return card
 
 
@@ -145,8 +236,11 @@ def phase_build():
     _build.lib()
     with open(_build.LOG_PATH) as f:
         ptxas = [ln.strip() for ln in f if "ptxas info" in ln]
+    spills = [ln for ln in ptxas if "spill" in ln and
+              "0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(phase="build", compile_s=round(secs, 3),
-        total_s=round(time.time() - t0, 3), ptxas=ptxas)
+        total_s=round(time.time() - t0, 3), ptxas=ptxas,
+        kernels_with_spills=len(spills))
 
 
 def k1_check(got, ref, W, L, B, **kv):
@@ -163,11 +257,12 @@ def k1_check(got, ref, W, L, B, **kv):
     return e
 
 
-def phase_k1(rng, card):
-    """Parity at small batches of both widths, then parity and times at
-    the (B, L) the pipeline's extender launches (its _batch_for)."""
+def phase_k1(rng, card, clock):
+    """Parity at small batches of both widths, then parity, times and
+    bounds at the (B, L) the pipeline's extender launches (its
+    _batch_for).  Returns (max abs err, {L: timing dict})."""
     from falcon_tpu_torch.ops.align_cuda import extend_batch_cuda
-    from falcon_tpu_torch.ops.align_device import extend_batch
+    from falcon_tpu_torch.ops.align_device import band_cells, extend_batch
     from falcon_tpu_torch.overlap.engine import make_device_aligner
     err = 0
     for W, L, B in ((256, 1024, 96), (64, 1024, 64), (256, 4096, 64),
@@ -182,53 +277,141 @@ def phase_k1(rng, card):
     for L in (1024, 8192):
         B = ext._batch_for(L)
         args = make_pairs(rng, B, L, W_MAIN)
+        clock.mark()
         got, ms = cuda_ms(lambda: extend_batch_cuda(*args, W=W_MAIN),
                           reps=3)
+        mhz = clock.peak()
         ref, plain = cuda_ms(lambda: extend_batch(*args, W=W_MAIN))
         err = max(err, k1_check(got, ref, W_MAIN, L, B, main_path=True))
-        cells = int((args[1] + args[3]).sum()) * W_MAIN
-        times[L] = (B, ms, plain)
+        ql, tl = args[1].cpu().numpy(), args[3].cpu().numpy()
+        cells = int(band_cells(ql, tl, W_MAIN).sum())
+        bnd, by = bound_ms(2 * B * L + 8 * B + 12 * B,
+                           cells * OPS_PER_CELL["K1"], mhz)
+        times[L] = dict(B=B, ms=ms, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by)
         log(phase="k1_time", card=card, B=B, L=L, W=W_MAIN, kernel_ms=ms,
-            plain_ms=plain, lane_steps=cells,
-            kernel_glane_steps_per_s=cells / ms / 1e6)
+            plain_ms=plain, band_cells=cells, sm_clock_mhz=mhz,
+            bound_ms=bnd, bound_by=by,
+            share_of_bound=share_of_bound("K1 L=%d" % L, ms, bnd),
+            lane_steps=int((ql + tl).sum()) * W_MAIN)
         del args, got, ref
         torch.cuda.empty_cache()
     return err, times
 
 
-def phase_k2(rng, card):
+def swept_cells_equal(got, planes, ql, tl, W):
+    """Whether two [S', B, W] move-plane stacks agree on every DP cell the
+    rows swept: step s <= qlen + tlen, 0 <= i <= qlen, 0 <= j <= tlen.
+    Returns (equal, cells compared)."""
+    from falcon_tpu_torch.ops.align_device import band_off
+    S = planes.shape[0]
+    dev = planes.device
+    lanes = torch.arange(W, device=dev)
+    n = 0
+    for s0 in range(0, S, 256):
+        ss = torch.arange(s0 + 1, min(s0 + 256, S) + 1, device=dev)
+        o = torch.tensor([band_off(int(x), W) for x in ss], device=dev)
+        i = (o[:, None] + lanes)[:, None, :]               # [s, 1, W]
+        j = ss[:, None, None] - i
+        ok = (ss[:, None, None] <= (ql + tl)[None, :, None]) & \
+            (i <= ql[None, :, None]) & (j >= 0) & (j <= tl[None, :, None])
+        sl = slice(s0, s0 + len(ss))
+        if not torch.equal(got[sl][ok], planes[sl][ok]):
+            return False, n
+        n += int(ok.sum())
+    return True, n
+
+
+def phase_k2(rng, card, clock):
+    """K2, K3 and the pair against their plain versions, bit-equal, then
+    K2 and K3 timed apart (mean of 3 after a warm-up; every launch writes
+    or reads a trace larger than L2) with bounds.  Returns (K2 err, K3
+    err, {(B, L): timing dict})."""
+    from falcon_tpu_torch.cns.device import DeviceCns
     from falcon_tpu_torch.ops import align_tb_cuda as k
-    from falcon_tpu_torch.ops.align_device import band_sweep
-    from falcon_tpu_torch.ops.align_tb import align_tb_batch, walk_back
+    from falcon_tpu_torch.ops.align_device import band_cells, band_sweep
+    from falcon_tpu_torch.ops.align_tb import (pack_moves, pack_trace,
+                                               unpack_trace, walk_back)
+    cns = DeviceCns(device="cuda")
+    shapes = [(cns._batch_for(1024), 1024), (cns._batch_for(16384), 16384),
+              (1024, 1024), (256, 16384)]
     err2 = err3 = 0
     times = {}
-    for B, L in ((1024, 1024), (256, 16384)):
+    for B, L in shapes:
         args = make_pairs(rng, B, L, W_MAIN)
-        got = k.align_tb_batch_cuda(*args, W=W_MAIN)
-        ref = align_tb_batch(*args, W=W_MAIN)
+        q, ql, t, tl = args
+        # the plain versions, each run (and timed) once
+        (p_ends, planes), p_fwd = cuda_ms(
+            lambda: band_sweep(*args, W_MAIN, 3, keep_moves=True),
+            warm=False)
+        (p_moves, p_bases), p_bwd = cuda_ms(
+            lambda: walk_back(q, p_ends, planes, W_MAIN), warm=False)
+        p_packed = pack_moves(p_moves)
+        del p_moves
+        # K2 alone: ends, and the decoded trace on the swept cells
+        ends, trace = k.tb_forward_cuda(*args, W_MAIN, 3)
         torch.cuda.synchronize()
-        e2 = max_err(got[:3], ref[:3])
-        e3 = max_err(got[3:], ref[3:])
-        log(phase="k2_k3_parity", W=W_MAIN, L=L, B=B, ends_max_abs_err=e2,
-            moves_bases_max_abs_err=e3)
-        if e2 or e3:
-            raise SystemExit("K2/K3 differ from their twin at B=%d L=%d"
-                             % (B, L))
-        err2, err3 = max(err2, e2), max(err3, e3)
+        e2 = max_err([ends], [p_ends])
+        got_planes = unpack_trace(trace, W_MAIN)
+        same, n_cells = swept_cells_equal(got_planes, planes, ql, tl, W_MAIN)
+        del got_planes, trace
+        # K3 alone, on the plain sweep's trace and ends
+        p_trace = pack_trace(planes, L)
+        del planes
+        moves, bases = k.tb_backward_cuda(p_trace, p_ends, q, W_MAIN)
+        torch.cuda.synchronize()
+        e3 = max_err([moves, bases], [p_packed, p_bases])
+        del p_trace, moves, bases
+        # the pair through the wrapper
+        pair = k.align_tb_batch_cuda(*args, W=W_MAIN)
+        torch.cuda.synchronize()
+        e23 = max_err(pair, list(p_ends) + [p_packed, p_bases])
+        log(phase="k2_k3_parity", W=W_MAIN, L=L, B=B, k2_ends_max_abs_err=e2,
+            k2_trace_equal=same, k2_trace_cells=n_cells,
+            k3_max_abs_err=e3, pair_max_abs_err=e23)
+        if e2 or e3 or e23 or not same:
+            raise SystemExit("K2/K3 differ from their plain versions at "
+                             "B=%d L=%d" % (B, L))
+        err2, err3 = max(err2, e2), max(err3, e3, e23)
+        del pair, p_packed, p_bases
+        clock.mark()
         (ends, trace), fwd = cuda_ms(
             lambda: k.tb_forward_cuda(*args, W_MAIN, 3), reps=3)
-        _, bwd = cuda_ms(lambda: k.tb_backward_cuda(trace, ends, W_MAIN),
-                         reps=3)
+        (mv, _), bwd = cuda_ms(
+            lambda: k.tb_backward_cuda(trace, ends, q, W_MAIN), reps=3)
+        mhz = clock.peak()
         del trace
-        (p_ends, planes), p_fwd = cuda_ms(
-            lambda: band_sweep(*args, W_MAIN, 3, keep_moves=True))
-        _, p_bwd = cuda_ms(
-            lambda: walk_back(args[0], p_ends, planes, W_MAIN))
-        del planes
-        times[(B, L)] = (fwd, p_fwd, bwd, p_bwd)
+        qn, tn = ql.cpu().numpy(), tl.cpu().numpy()
+        cells = int(band_cells(qn, tn, W_MAIN).sum())
+        steps = np.minimum(qn + tn, 2 * L)
+        trace_bytes = int(steps.sum()) * W_MAIN // 4
+        b2, by2 = bound_ms(2 * B * L + 8 * B + 12 * B + trace_bytes,
+                           cells * OPS_PER_CELL["K2"], mhz)
+        # K3's work is its walks, each step made once: the steps this run
+        # walked are the moves other than 3 (filler, or behind a diag) in
+        # its output.  A step reads one 4-byte trace word and at most one
+        # q byte (the i of the end cell counts them); the ends are read
+        # and both streams written whole.
+        walked = sum(int((((mv >> sh) & 3) != 3).sum()) for sh in (0, 2, 4, 6))
+        b3, by3 = bound_ms(4 * walked + int(ends[0].sum()) + 12 * B +
+                           2 * L * B * 5 // 4, walked * OPS_PER_WALK_STEP,
+                           mhz)
+        longest = int((ends[0] + ends[1]).max())   # anti-diagonals, one row
+        c3 = chain_ms(longest, SMEM_LATENCY_CLK, mhz)
+        times[(B, L)] = dict(
+            K2=dict(ms=fwd, plain_ms=p_fwd, bound_ms=b2, bound_by=by2),
+            K3=dict(ms=bwd, plain_ms=p_bwd, bound_ms=b3, bound_by=by3))
         log(phase="k2_k3_time", card=card, B=B, L=L, W=W_MAIN,
-            k2_ms=fwd, k2_plain_ms=p_fwd, k3_ms=bwd, k3_plain_ms=p_bwd,
-            trace_bytes=2 * L * B * W_MAIN)
+            sm_clock_mhz=mhz, k2_ms=fwd, k2_plain_ms=p_fwd, k2_bound_ms=b2,
+            k2_bound_by=by2,
+            k2_share_of_bound=share_of_bound("K2 %dx%d" % (B, L), fwd, b2),
+            band_cells=cells, trace_bytes=trace_bytes,
+            trace_alloc_bytes=B * k.trace_row_bytes(L, W_MAIN),
+            k3_ms=bwd, k3_plain_ms=p_bwd, k3_bound_ms=b3, k3_bound_by=by3,
+            k3_share_of_bound=share_of_bound("K3 %dx%d" % (B, L), bwd, b3),
+            k3_chain_floor_assumed_ms=c3, walked_steps=walked,
+            longest_walk_diagonals=longest)
+        del args, q, ql, t, tl, ends, mv
         torch.cuda.empty_cache()
     return err2, err3, times
 
@@ -281,6 +464,13 @@ def phase_pipeline(args, workdir, dp):
     log(phase=name + "_timings", wall_s=round(time.time() - t0, 3),
         **pipe.timings)
     log(phase=name + "_launches", **launches)
+    prof = os.environ.get("FTPU_PROFILE")
+    if prof:
+        # the profiled run's device time by kernel, largest first:
+        # {name: [launches, seconds]}
+        with open(os.path.join(prof, "device_time.json")) as f:
+            log(phase=name + "_device_time",
+                by_kernel=dict(list(json.load(f).items())[:12]))
     score = simcheck.score_assembly(p_ctg, genome)
     log(phase=name + "_assembly", **score)
     need = list(launches) if dp else ["K1", "K2", "K3"]
@@ -347,7 +537,7 @@ def dp_equal(got, ref):
     return err, all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
-def phase_dp_kernels(rng, card, buckets, min_cov=2, min_idt=0.70):
+def phase_dp_kernels(rng, card, clock, buckets, min_cov=2, min_idt=0.70):
     """K4, K5 and K6 bit-equal to their twins at each T bucket, G from the
     port's _dp_group_cap, then timed (kernels by cuda_ms, twins once).
     K6 runs on the scan's outputs with group G - 2 moved onto a 2T-code
@@ -367,6 +557,7 @@ def phase_dp_kernels(rng, card, buckets, min_cov=2, min_idt=0.70):
 
         def fresh():
             return msa0.view(torch.int16).clone().view(torch.uint16)
+        clock.mark()
         got = k.accumulate_tags_planes_cuda(fresh(), *rest)
         ref, p4 = cuda_ms(lambda: cns_dp.accumulate_tags_planes(
             fresh(), *rest), warm=False)
@@ -389,9 +580,29 @@ def phase_dp_kernels(rng, card, buckets, min_cov=2, min_idt=0.70):
                                                         D), warm=False)
         e6, eq6 = dp_equal(walk, ref)
         n = walk[1].tolist()
+        mhz = clock.peak()
+        tags = int(c_got[:-1].sum()) - int(cns_dp.counts_i32(msa0).sum())
+        rows = rest[0].shape[1]
+        # K4: both streams and the row vectors read, one 32-bit count word
+        # read and written per tag; K5: the counts read, pred plane and
+        # coverage written; K6: one pred byte read per step, the emitted
+        # rows written.  Their arithmetic is far below their bytes.
+        b4, by4 = bound_ms(rest[0].numel() + rest[1].numel() + 12 * rows +
+                           8 * tags, 0, mhz)
+        b5, by5 = bound_ms(G * T * (2 * (5 * cns_dp.NPC0 + (D - 1) * 5 *
+                                         cns_dp.NPCD) + D * 5 + 4), 0, mhz)
+        steps6 = [x + T for x in n]          # emissions plus column moves
+        b6, by6 = bound_ms(sum(steps6) + G * 2 * T + 4 * G, 0, mhz)
+        c5 = chain_ms(T, SMEM_LATENCY_CLK, mhz)
+        c6 = chain_ms(max(steps6), GLOBAL_LATENCY_CLK, mhz)
         log(phase="dp_kernels", card=card, T=T, G=G, D=D, L=L,
-            rows=rest[0].shape[1], tags=int(c_got[:-1].sum()) - int(
-                cns_dp.counts_i32(msa0).sum()),
+            rows=rows, tags=tags, sm_clock_mhz=mhz,
+            k4_bound_ms=b4, k4_bound_by=by4, k5_bound_ms=b5, k5_bound_by=by5,
+            k5_chain_floor_assumed_ms=c5, k6_bound_ms=b6, k6_bound_by=by6,
+            k6_chain_floor_assumed_ms=c6, k6_longest_walk_steps=max(steps6),
+            k4_share_of_bound=share_of_bound("K4 T=%d" % T, t4, b4),
+            k5_share_of_bound=share_of_bound("K5 T=%d" % T, t5, b5),
+            k6_share_of_bound=share_of_bound("K6 T=%d" % T, t6, b6),
             k4_max_abs_err=e4, k4_bit_equal=eq4, k5_max_abs_err=e5,
             k5_bit_equal=eq5, k6_max_abs_err=e6, k6_bit_equal=eq6,
             emitted_min=min(n), emitted_max=max(n),
@@ -405,10 +616,57 @@ def phase_dp_kernels(rng, card, buckets, min_cov=2, min_idt=0.70):
                              "of %d" % (n[G - 1], n[G - 2], 2 * T))
         errs = {"K4": max(errs["K4"], e4), "K5": max(errs["K5"], e5),
                 "K6": max(errs["K6"], e6)}
-        times[T] = {"K4": (t4, p4), "K5": (t5, p5), "K6": (t6, p6)}
+        times[T] = {
+            "K4": dict(ms=t4, plain_ms=p4, bound_ms=b4, bound_by=by4),
+            "K5": dict(ms=t5, plain_ms=p5, bound_ms=b5, bound_by=by5),
+            "K6": dict(ms=t6, plain_ms=p6, bound_ms=b6, bound_by=by6)}
         del msa0, rest, got, scan, lad, walk, ref
         torch.cuda.empty_cache()
     return errs, times
+
+
+def run_phases(args, rng, card, clock):
+    """Every phase after env, in order; returns the kernels list."""
+    phase_build()
+    e1, t1 = phase_k1(rng, card, clock)
+    e2, e3, t2 = phase_k2(rng, card, clock)
+    with tempfile.TemporaryDirectory() as d:
+        launches, host_t = phase_pipeline(args, d, dp=False)
+    with tempfile.TemporaryDirectory() as d:
+        launches_dp, dp_t = phase_pipeline(args, d, dp=True)
+    log(phase="pipeline_compare", card=card, **{
+        key: {"host_msa": host_t.get(key), "device_dp": dp_t.get(key)}
+        for key in ("phase0_masking", "phase0_overlap", "phase0_consensus",
+                    "phase1_overlap", "phase2_graph", "total")})
+    buckets = sorted(dp_t["phase0_cns_dp_batches"])
+    buckets = sorted({buckets[0], buckets[-1]})
+    log(phase="dp_buckets", hit=dp_t["phase0_cns_dp_batches"],
+        checked=buckets)
+    e_dp, t_dp = phase_dp_kernels(rng, card, clock, buckets)
+    t_tb = t2[max(t2, key=lambda bl: (bl[1], bl[0]))]   # largest L bucket
+    t_top = t_dp[buckets[-1]]
+    rows = [("K1 banded extension", "extend.cu",
+             "falcon_tpu/ops/align_pallas.py:50", launches["K1"], e1,
+             t1[1024]),
+            ("K2 traceback forward", "align_tb.cu",
+             "falcon_tpu/ops/align_tb_pallas.py:39", launches["K2"], e2,
+             t_tb["K2"]),
+            ("K3 traceback walk", "align_tb.cu",
+             "falcon_tpu/ops/align_tb_pallas.py:151", launches["K3"], e3,
+             t_tb["K3"])]
+    rows += [(name, "cns_dp.cu", "falcon_tpu/ops/cns_dp.py:%d" % line,
+              launches_dp[kk], e_dp[kk], t_top[kk])
+             for kk, name, line in (("K4", "K4 tag accumulation", 203),
+                                    ("K5", "K5 consensus scan", 456),
+                                    ("K6", "K6 backtrack walk", 562))]
+    # no single PyTorch call computes a banded edit DP, a traceback walk,
+    # the tag decode-and-scatter, the consensus chain or its walk
+    return [dict(name=name, route="cuda",
+                 source="falcon_tpu_torch/csrc/" + src, replaces=repl,
+                 launches=n, max_abs_err=err, ms=t["ms"],
+                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                 bound_by=t["bound_by"], library_ms=None)
+            for name, src, repl, n, err, t in rows]
 
 
 def main(argv=None):
@@ -429,50 +687,16 @@ def main(argv=None):
             format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     rng = np.random.default_rng(args.seed)
     card = phase_env()
-    phase_build()
-    e1, t1 = phase_k1(rng, card)
-    e2, e3, t2 = phase_k2(rng, card)
-    with tempfile.TemporaryDirectory() as d:
-        launches, host_t = phase_pipeline(args, d, dp=False)
-    with tempfile.TemporaryDirectory() as d:
-        launches_dp, dp_t = phase_pipeline(args, d, dp=True)
-    log(phase="pipeline_compare", card=card, **{
-        key: {"host_msa": host_t.get(key), "device_dp": dp_t.get(key)}
-        for key in ("phase0_masking", "phase0_overlap", "phase0_consensus",
-                    "phase1_overlap", "phase2_graph", "total")})
-    buckets = sorted(dp_t["phase0_cns_dp_batches"])
-    buckets = sorted({buckets[0], buckets[-1]})
-    log(phase="dp_buckets", hit=dp_t["phase0_cns_dp_batches"],
-        checked=buckets)
-    e_dp, t_dp = phase_dp_kernels(rng, card, buckets)
-    _, ms, plain = t1[1024]
-    fwd, p_fwd, bwd, p_bwd = t2[(1024, 1024)]
-    t_top = t_dp[buckets[-1]]
-    kernels = [
-        dict(name="K1 banded extension", route="cuda",
-             source="falcon_tpu_torch/csrc/extend.cu",
-             replaces="falcon_tpu/ops/align_pallas.py:50",
-             launches=launches["K1"], max_abs_err=e1, ms=ms,
-             plain_ms=plain),
-        dict(name="K2 traceback forward", route="cuda",
-             source="falcon_tpu_torch/csrc/align_tb.cu",
-             replaces="falcon_tpu/ops/align_tb_pallas.py:39",
-             launches=launches["K2"], max_abs_err=e2, ms=fwd,
-             plain_ms=p_fwd),
-        dict(name="K3 traceback walk", route="cuda",
-             source="falcon_tpu_torch/csrc/align_tb.cu",
-             replaces="falcon_tpu/ops/align_tb_pallas.py:151",
-             launches=launches["K3"], max_abs_err=e3, ms=bwd,
-             plain_ms=p_bwd),
-    ] + [
-        dict(name=name, route="cuda",
-             source="falcon_tpu_torch/csrc/cns_dp.cu",
-             replaces="falcon_tpu/ops/cns_dp.py:%d" % line,
-             launches=launches_dp[kk], max_abs_err=e_dp[kk],
-             ms=t_top[kk][0], plain_ms=t_top[kk][1])
-        for kk, name, line in (("K4", "K4 tag accumulation", 203),
-                               ("K5", "K5 consensus scan", 456),
-                               ("K6", "K6 backtrack walk", 562))]
+    clock = ClockSampler()
+    try:
+        kernels = run_phases(args, rng, card, clock)
+    finally:
+        clock.close()
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "falcon_tpu"))
+    log(phase="imports", jax_or_falcon_tpu_modules=loaded)
+    if loaded:
+        raise SystemExit("the port loaded %s" % loaded)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ C++ for sm_90a:
   K1  csrc/extend.cu     banded extension        (falcon_tpu ops/align_pallas.py)
   K2  csrc/align_tb.cu   forward DP + trace      (ops/align_tb_pallas.py _fwd_kernel)
   K3  csrc/align_tb.cu   traceback walk          (ops/align_tb_pallas.py _bwd_kernel)
+  K4-K6  csrc/cns_dp.cu  device-DP consensus     (ops/cns_dp.py scans)
 
 Each kernel's Python wrapper launches it on a CUDA tensor and runs its plain
 PyTorch twin on a CPU tensor; the twins are what the CPU tests hold against
@@ -15,11 +16,11 @@ the JAX package.
 
 There are no learned parameters and so no weight conversion: the only state
 that crosses between the two packages is the read database, a block's code
-arrays and the cfg, and the port reads all three through the shared
-falcon_tpu.io.readstore and falcon_tpu.config.  Every falcon_tpu module
-that imports no JAX (io, graph, config, the overlap chain stage, the host
-C++ kernels behind ops.native, cns.runner, ...) is imported, not copied.
-This package imports torch and never jax.
+arrays and the cfg, all files.  This package imports torch, never jax, and
+nothing of falcon_tpu: the host code (io, graph, config, the overlap chain
+stage, the host C++ kernels behind ops.native, cns.runner, ...) is this
+package's own copy of falcon_tpu's, file for file at the same relative
+path, and the C++ library is built into this package's own _build/.
 
 Layout mirrors falcon_tpu so each counterpart is easy to find:
 
@@ -29,6 +30,7 @@ Layout mirrors falcon_tpu so each counterpart is easy to find:
   ops/align_tb.py       plain alignment + traceback   (ops/align_tb.py)
   ops/align_tb_cuda.py  K2 + K3 wrapper               (ops/align_tb_pallas.py)
   ops/_build.py         nvcc build + ctypes binding
+  ops/native.py         g++ build + ctypes binding    (ops/native.py)
   overlap/engine.py     make_device_aligner           (overlap/engine.py)
   cns/device.py         host-MSA device consensus     (cns/device.py)
   pipeline/driver.py    the fc_run-equivalent driver  (pipeline/driver.py)

@@ -14,10 +14,10 @@ device-DP path, anything else the host-MSA path):
              codes
 
 DeviceCns replaces falcon_tpu's DeviceCns; run_consensus_device replaces
-its namesake.  Shared with falcon_tpu.cns.device, which imports no JAX at
-module level: the group gates (gate_group_ranged, _clamp_range, _range_ok),
-the code conversions, and the host-only methods dispatch_chunk,
-finish_chunk, _msa and _host_range, bound here unchanged.
+its namesake.  The host halves are copies of falcon_tpu/cns/device.py's:
+the group gates (gate_group_ranged, _clamp_range, _range_ok), the code
+conversions, and the methods dispatch_chunk, finish_chunk, _msa and
+_host_range.
 """
 import collections
 import logging
@@ -28,20 +28,110 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from falcon_tpu.cns import device as _ref
-from falcon_tpu.cns import runner
-from falcon_tpu.cns.device import (_clamp_range, _range_ok,
-                                   gate_group_ranged, seq_to_codes)
-from falcon_tpu.ops import native
-
 from ..ops import cns_dp
 from ..ops import cns_dp_cuda as dpk
+from ..ops import consensus_dp
+from ..ops import native
 from ..ops.align_device import DeviceExtender, gather_pad2, pack_tasks
 from ..ops.align_tb import moves_to_alignment, unpack_moves
-from ..ops.align_tb_cuda import align_tb_batch_cuda
+from ..ops.align_tb_cuda import (WIDTHS, align_tb_batch_cuda,
+                                 trace_row_bytes)
 from ..utils.device import resolve_device
+from . import runner
 
 LOG = logging.getLogger(__name__)
+
+MAX_SEQ_LEN = 100000  # reference clip (consensus.py:178)
+
+_CODE = np.full(256, 4, dtype=np.uint8)
+for _i, _c in enumerate(b"ACGT"):
+    _CODE[_c] = _i
+    _CODE[ord(chr(_c).lower())] = _i
+
+
+def seq_to_codes(seq):
+    if isinstance(seq, np.ndarray):
+        return seq
+    return _CODE[np.frombuffer(seq.encode() if isinstance(seq, str)
+                               else seq, dtype=np.uint8)]
+
+
+_A = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def seq_to_ascii(seq):
+    """bytes of the sequence; accepts str or uint8 code arrays (group
+    items carry raw ReadStore codes to avoid a decode+re-encode round
+    trip per support)."""
+    if isinstance(seq, np.ndarray):
+        return _A[np.minimum(seq, 3)].tobytes()
+    return seq.encode() if isinstance(seq, str) else bytes(seq)
+
+
+def gate_group_ranged(seed_id, items, cfg):
+    """The get_seq_data gates (reference consensus.py:161-209) over
+    (read_id, seq, rng) items, keeping each support's alignment range.
+
+    items: seed first; rng = (s1, e1, s2, e2) in (support, seed)
+    coordinates on the seed's strand, or None (seed / unknown).
+    Returns (seed_seq, [(seq, rng, is_seed_self), ...]) or None."""
+    sups = []
+    seed_seq = None
+    seed_len = 0
+    read_ids = set()
+    read_cov = 0
+    for read_id, seq, rng in items:
+        if len(seq) > MAX_SEQ_LEN:
+            seq = seq[:MAX_SEQ_LEN - 1]
+            rng = None if rng is None else (
+                min(rng[0], len(seq)), min(rng[1], len(seq)),
+                rng[2], rng[3])
+        if len(seq) < cfg.min_len_aln:
+            continue
+        if seed_seq is None:
+            seed_seq = seq
+            seed_len = len(seq)
+        if read_id not in read_ids:
+            sups.append((seq, rng, read_id == items[0][0]))
+            read_ids.add(read_id)
+            read_cov += len(seq)
+    if seed_seq is None:
+        return None
+    if len(sups) + 1 < cfg.min_n_read or \
+            read_cov // seed_len < cfg.min_cov_aln:
+        return None
+    # get_longest_reads (consensus.py:26-45): sort supports by length desc,
+    # cap by count and by coverage of the seed
+    sups.sort(key=lambda x: -len(x[0]))
+    longest_n = cfg.max_n_read - 1
+    if cfg.max_cov_aln > 0:
+        n = 0
+        cov = 0
+        for seq, _, _ in sups:
+            if cov // seed_len > cfg.max_cov_aln:
+                break
+            n += 1
+            cov += len(seq)
+        longest_n = min(n, cfg.max_n_read - 1)
+    return seed_seq, sups[:longest_n]
+
+
+def _clamp_range(rng, sup_len, seed_len):
+    s1, e1, s2, e2 = rng
+    s1 = max(0, min(s1, sup_len))
+    e1 = max(s1, min(e1, sup_len))
+    s2 = max(0, min(s2, seed_len))
+    e2 = max(s2, min(e2, seed_len))
+    return s1, e1, s2, e2
+
+
+def _range_ok(rng):
+    """generate_consensus range gates (falcon.c:605-612)."""
+    s1, e1, s2, e2 = rng
+    l1 = e1 - s1
+    l2 = e2 - s2
+    return (l1 >= 100 and l2 >= 100 and
+            abs(l1 - l2) <= int(0.5 * 0.10 * (l1 + l2)))
 
 
 class DeviceCns:
@@ -52,16 +142,30 @@ class DeviceCns:
                  dp_delta_cap=None, dp_budget=None):
         self.device = resolve_device(device)
         on_cpu = self.device.type == "cpu"
-        # rows * L per batch; the K2 trace is 2 * L * B * W bytes, so
-        # moves_budget / (2W) caps the cells too.  The plain twin keeps
-        # the same planes in host memory (hence the smaller CPU budget)
-        # and pays a Python step per anti-diagonal (hence few, wide
-        # batches)
-        self.max_cells = max_cells or ((1 << 20) if on_cpu else (1 << 22))
+        # A batch is bounded three ways.  moves_budget caps the trace
+        # between the sweep and the walk: on the card K2's two bits a cell
+        # (align_tb_cuda.trace_row_bytes), on the CPU the plain twin's
+        # byte-a-cell move planes, 2 * L * W a row, kept in host memory
+        # (hence its smaller budget).  max_cells caps rows * L, which
+        # sizes the [B, L] gather temporaries.  max_rows is where more rows
+        # stop paying on the card: K2 + K3 per row at L = 1024 cost 1.25 us
+        # in a launch of 1024 rows, 0.76 us at 4096 and 0.64 us at 16384
+        # (NVIDIA H100 80GB HBM3, 700.00 W; tools/tb_compare.py), since 4096
+        # warps put eight on every scheduler of the 132 SMs.  The twin pays
+        # a Python step per anti-diagonal whatever the batch, and keeps
+        # falcon_tpu's 1024.
+        self.max_cells = max_cells or ((1 << 20) if on_cpu else (1 << 24))
         self.moves_budget = moves_budget or (
             (1 << 30) if on_cpu else (1 << 31))
+        self.max_rows = 1024 if on_cpu else 4096
         # the consensus band (falcon_tpu's validated default, FTPU_CNS_W)
         self.W = W or int(os.environ.get("FTPU_CNS_W", "256"))
+        if not on_cpu and self.W not in WIDTHS:
+            # K2/K3 hold W/32 cells a lane and exist for these bands only;
+            # the plain twin takes any multiple of 32 up to 1024
+            raise ValueError("on a CUDA device the consensus band "
+                             "(FTPU_CNS_W) must be one of %s; got %d"
+                             % (WIDTHS, self.W))
         # the device-DP path: falcon_tpu's switch and sizes, read with the
         # same meanings (one process, so FTPU_CNS_DP alone decides)
         if use_dp is None:
@@ -78,11 +182,20 @@ class DeviceCns:
             (32768 if use_dp else 8192))
         self.dp_batches = collections.Counter()    # T -> DP batches run
 
+    def _trace_row_bytes(self, L):
+        """Bytes of trace one batch row of padded length L holds between
+        the forward sweep and the walk, on this object's device."""
+        if self.device.type == "cpu":
+            return 2 * L * self.W
+        return trace_row_bytes(L, self.W)
+
     def _batch_for(self, L):
-        """Rows per batch.  K2/K3 run one block or thread per row, so B
-        needs no tile rounding; the trace budget alone bounds it."""
-        cells = min(self.max_cells, self.moves_budget // (2 * self.W))
-        return max(1, min(1024, cells // max(L, 1)))
+        """Rows per batch: the trace budget, the cell cap and the row cap,
+        whichever is smallest.  K2/K3 run a warp per row, so B needs no
+        tile rounding."""
+        rows = min(self.moves_budget // self._trace_row_bytes(max(L, 1)),
+                   self.max_cells // max(L, 1), self.max_rows)
+        return max(1, rows)
 
     def _align_tb(self, q, qlen, t, tlen):
         return align_tb_batch_cuda(q, qlen, t, tlen, W=self.W)
@@ -156,11 +269,65 @@ class DeviceCns:
         """tasks: [(q_codes, t_codes)] -> [(dist, n_cols, q_aln, t_aln)]."""
         return self.collect_tasks(tasks, self.dispatch_tasks(tasks))
 
-    # host-only chunk stages, unchanged from falcon_tpu
-    dispatch_chunk = _ref.DeviceCns.dispatch_chunk
-    finish_chunk = _ref.DeviceCns.finish_chunk
-    _msa = _ref.DeviceCns._msa
-    _host_range = _ref.DeviceCns._host_range
+    # -- per-chunk consensus --------------------------------------------------
+    def dispatch_chunk(self, chunk, cfg):
+        """Build and queue one chunk's alignment tasks (non-blocking).
+
+        chunk: [(seed_id, seed_seq, sups)] from gate_group_ranged.
+        Returns an opaque state for finish_chunk."""
+        tasks = []
+        task_of = []    # (group_idx, sup_idx, s1, s2)
+        group_alns = [[] for _ in chunk]  # per group: (order, aln tuple)
+        for gi, (seed_id, seed_seq, sups) in enumerate(chunk):
+            seed_codes = seq_to_codes(seed_seq)
+            for si, (sup, rng, is_self) in enumerate(sups):
+                if is_self:
+                    # identity alignment, no device work needed
+                    ascii_ = seq_to_ascii(seed_seq)
+                    group_alns[gi].append((si, (ascii_, ascii_, 0, 0)))
+                    continue
+                if rng is None:
+                    rng = self._host_range(sup, seed_seq, cfg)
+                    if rng is None:
+                        continue
+                rng = _clamp_range(rng, len(sup), len(seed_seq))
+                if not _range_ok(rng):
+                    continue
+                s1, e1, s2, e2 = rng
+                tasks.append((seq_to_codes(sup)[s1:e1],
+                              seed_codes[s2:e2]))
+                task_of.append((gi, si, s1, s2))
+        inflight = self.dispatch_tasks(tasks)
+        return (chunk, cfg, tasks, task_of, group_alns, inflight)
+
+    def finish_chunk(self, state):
+        """Collect one dispatched chunk and run the host MSA/DP.
+        Returns [(seed_id, consensus_str)]."""
+        chunk, cfg, tasks, task_of, group_alns, inflight = state
+        max_diff = 1.0 - cfg.min_idt
+        res = self.collect_tasks(tasks, inflight)
+        for (gi, si, s1, s2), r in zip(task_of, res):
+            dist, ncols, qa, ta = r
+            if ncols > 500 and (float(dist) / float(ncols)) < max_diff:
+                group_alns[gi].append((si, (qa, ta, s1, s2)))
+        import time as _time
+        from concurrent.futures import ThreadPoolExecutor
+        t_msa = _time.time()
+
+        def one(gi):
+            seed_id, seed_seq, sups = chunk[gi]
+            alns = [a for _, a in sorted(group_alns[gi], key=lambda x: x[0])]
+            if not alns:
+                return (seed_id, "")
+            return (seed_id, self._msa(len(seed_seq), alns, cfg.min_cov))
+
+        # the native MSA releases the GIL; two workers keep both host
+        # cores busy while the device aligns the next chunk
+        with ThreadPoolExecutor(2) as tpe:
+            out = list(tpe.map(one, range(len(chunk))))
+        LOG.info("cns.device: chunk of %d groups: msa %.1fs",
+                 len(chunk), _time.time() - t_msa)
+        return out
 
     def consensus_chunk(self, chunk, cfg):
         """chunk: [(seed_id, seed_seq, sups)] from gate_group_ranged.
@@ -281,6 +448,29 @@ class DeviceCns:
         LOG.info("cns.device-dp: collected %d groups in %.1fs", len(chunk),
                  time.time() - t0)
         return out
+
+    def _msa(self, t_len, alns, min_cov):
+        if native.available():
+            return native.cns_from_alns(t_len, alns, min_cov)
+        tag_seqs = [consensus_dp.get_align_tags(qa, ta, s1, s2, j, 0)
+                    for j, (qa, ta, s1, s2) in enumerate(alns)]
+        return consensus_dp.get_cns_from_align_tags(tag_seqs, t_len,
+                                                    min_cov)
+
+    def _host_range(self, sup, seed, cfg):
+        """Range fallback when no overlap coordinates travel with the
+        group (stream inputs): host k-mer chain, reference semantics."""
+        from ..ops import kmer as _kmer
+        if isinstance(seed, np.ndarray):
+            seed = seq_to_ascii(seed).decode()
+        if isinstance(sup, np.ndarray):
+            sup = seq_to_ascii(sup).decode()
+        lookup = _kmer.KmerLookup(seed, cfg.K)
+        qp, tp = lookup.find_kmer_pos_for_seq(sup)
+        if len(qp) == 0:
+            return None
+        r = _kmer.find_best_aln_range(qp, tp, cfg.K, cfg.K * 6, 5)
+        return (r.s1, r.e1, r.s2, r.e2)
 
 
 def run_consensus_device(groups, cfg, out, dev=None, progress_cb=None):

@@ -1,4 +1,5 @@
-// Banded anti-diagonal edit DP shared by K1 (extend.cu) and K2 (align_tb.cu).
+// Banded anti-diagonal edit DP of K1 (extend.cu).  K2 sweeps the same DP
+// with a warp-resident band (tb_sweep.cuh).
 //
 // One thread block per batch row, one thread per band lane.  Anti-diagonal
 // s = i + j; lane l holds cell i = o(s) + l with o(s) = max(0, s/2 - W/2),
@@ -28,17 +29,14 @@ __device__ __forceinline__ int ftt_band_off(int s, int W) {
     return o > 0 ? o : 0;
 }
 
-// Sweeps row b.  With TRACE, stores one byte per (s, lane) into
-// trace[b][s-1][lane] ([B, 2L, W] int8): bits 0-1 the move (0 = diag,
-// 1 = up, 2 = left), bits 2-4 min(q[i-1], 4).  Writes (i, j, d) to
-// ends[0][b], ends[1][b], ends[2][b] ([3, B] int32).
-template <bool TRACE>
-__device__ void ftt_band_dp(const int8_t* __restrict__ q,
-                            const int8_t* __restrict__ t,
-                            const int* __restrict__ qlen,
-                            const int* __restrict__ tlen, int B, int L,
-                            int W, int end_bonus, int* __restrict__ ends,
-                            int8_t* __restrict__ trace) {
+// Sweeps row b.  Writes (i, j, d) to ends[0][b], ends[1][b], ends[2][b]
+// ([3, B] int32).
+static __device__ void ftt_band_dp(const int8_t* __restrict__ q,
+                                   const int8_t* __restrict__ t,
+                                   const int* __restrict__ qlen,
+                                   const int* __restrict__ tlen, int B,
+                                   int L, int W, int end_bonus,
+                                   int* __restrict__ ends) {
     extern __shared__ int smem[];
     const int b = blockIdx.x;
     const int l = threadIdx.x;
@@ -47,7 +45,6 @@ __device__ void ftt_band_dp(const int8_t* __restrict__ q,
     const int tl = tlen[b];
     const int8_t* qr = q + (size_t)b * L;
     const int8_t* tr = t + (size_t)b * L;
-    int8_t* trow = TRACE ? trace + (size_t)b * 2 * L * W : nullptr;
 
     for (int x = l; x < 3 * P; x += W) smem[x] = FTT_INF;
     __syncthreads();
@@ -66,18 +63,15 @@ __device__ void ftt_band_dp(const int8_t* __restrict__ q,
         const int i = o + l;
         const int j = s - i;
         int v = FTT_INF;
-        int mv = 0;
-        int qc = 4;
         if (i <= ql && j >= 0 && j <= tl) {
-            if (i >= 1 && i <= L) qc = qr[i - 1];
+            const int qc = (i >= 1 && i <= L) ? qr[i - 1] : 4;
             const int tc = (j >= 1 && j <= L) ? tr[j - 1] : 5;
             const int v_up = prev[2 + l + d1] + 1;      // D[i, j-1] + 1
             const int v_left = prev[1 + l + d1] + 1;    // D[i-1, j] + 1
             const int v_diag = prev2[1 + l + d2] + (qc != tc ? 1 : 0);
             int cand = min(min(v_up, v_left), v_diag);
-            mv = v_diag == cand ? 0 : (v_up == cand ? 1 : 2);
-            if (i == 0) { cand = j; mv = 1; }
-            if (j == 0) { cand = i; mv = 2; }
+            if (i == 0) cand = j;
+            if (j == 0) cand = i;
             v = min(cand, FTT_INF);
             if ((i == ql || j == tl) && v < FTT_INF) {
                 const int sc = s - end_bonus * v;
@@ -85,9 +79,6 @@ __device__ void ftt_band_dp(const int8_t* __restrict__ q,
             }
         }
         smem[cur_b * P + 2 + l] = v;
-        if (TRACE)
-            trow[(size_t)(s - 1) * W + l] =
-                (int8_t)(mv | (min(qc, 4) << 2));
         __syncthreads();
         const int old2 = prev2_b;
         prev2_b = prev_b;

@@ -1,0 +1,293 @@
+// Warp-resident banded anti-diagonal edit DP with a two-bit trace (K2).
+//
+// The DP is band_dp.cuh's: anti-diagonal s = i + j, band cell l holds
+// i = o(s) + l with o(s) = max(0, s/2 - W/2), j = s - i, edit costs 1, the
+// same end-cell rule.  What differs is where a row lives: one warp sweeps
+// one row, and lane n holds the C = W/32 consecutive band cells
+// l = n*C .. n*C + C - 1 of anti-diagonals s-1 and s-2 in registers.  The
+// window offset moves by 0 or 1 per step, so a step needs one cell of a
+// neighbouring lane per operand (shuffles) and no barrier; the C cells of
+// a lane are independent and give the instruction-level parallelism that
+// hides the arithmetic latency.
+//
+// The sweep is bound by instruction issue, so a step is compiled three
+// ways and the warp picks one per step (the choice depends on s, qlen and
+// tlen alone, so a warp never diverges).  Interior steps -- every cell of
+// the band a DP cell with 1 <= i < qlen and 1 <= j < tlen, and the window
+// already moving (s >= W + 4) -- are the bulk of a long row; there the
+// mask, the forced row 0 / column 0, the end-cell scoring and the clamp
+// all fall away, d2 is 1 and d1 is the parity of s, fixed at compile time
+// (FTT_TB_FAST0, FTT_TB_FAST1).  Every other step runs the general form
+// (FTT_TB_EDGE).
+//
+// q and t reach the cells through two per-warp rings in shared memory.
+// A chunk of FTT_TB_CHUNK steps reads only ring bytes; the bytes the next
+// chunk needs are loaded into registers before the chunk's first step and
+// stored into the rings after its last, so no cell waits on device memory.
+// Registers and not cp.async carry them: a ring byte's place wraps and the
+// first C are mirrored, byte by byte, the bytes in flight would need a
+// ring twice the size (the chunk still reads the places they land on), and
+// a lane's share is 7 loads and 7 stores per 128 steps, none of them on a
+// step's dependent chain.
+// A ring of R bytes holds the last R of its sequence: a chunk's cells span
+// at most W + FTT_TB_CHUNK + 1 of t and W + FTT_TB_CHUNK/2 + 1 of q.  The
+// first C bytes are mirrored behind the ring, so a lane's C consecutive
+// bytes are read at fixed offsets from one wrapped base.  Ring bytes that
+// were never loaded (index < 0 or >= L) are only read by cells that are
+// masked (outside [0, qlen] x [0, tlen]) or forced (row 0, column 0), so
+// their value is never used.
+//
+// The trace is two bits a cell (0 = diag, 1 = up, 2 = left; masked cells
+// store 0) and never leaves its lane on the way out: a lane packs the
+// moves of its own C cells, step after step, into one 32-bit word, which
+// is full after G = 16/C steps, and the warp stores its 32 words as one
+// 128-byte line.  trace[b][(s-1)/G][n] holds, for lane n, field
+// ((s-1) % G) * C + c in bits 2*field and 2*field + 1: the move of band
+// cell n*C + c at step s.  No ballot, no staging, one store per G steps;
+// a step is W/4 bytes.  A row stores only the words of the steps it
+// sweeps, s = 1 .. min(qlen + tlen, 2L).
+//
+// End cell: every lane keeps its best boundary cell with strict >, cells in
+// i order, so within a lane ties go to the earliest s and then the lowest
+// i; a butterfly of shuffles picks the winner by (highest score, earliest
+// s, lowest i).  A row with no scored cell returns (0, 0, 0).
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define FTT_INF (1 << 20)
+#define FTT_NEG (-(1 << 30))
+#define FTT_TB_CHUNK 128
+#define FTT_TB_FULL 0xffffffffu
+#define FTT_TB_EDGE 0
+#define FTT_TB_FAST0 1          // interior step, d1 = 0 (s odd)
+#define FTT_TB_FAST1 2          // interior step, d1 = 1 (s even)
+
+// Ring bytes per sequence, and what one warp needs of shared memory: two
+// rings with their mirrors.
+#define FTT_TB_RING(C) ((C) * 32 + FTT_TB_CHUNK + 8 <= 512 ? 512 : 1024)
+#define FTT_TB_RING_ALLOC(C) (FTT_TB_RING(C) + 8)
+#define FTT_TB_WARP_SMEM(C) (2 * FTT_TB_RING_ALLOC(C))
+// Steps whose moves fill one 32-bit trace word of a lane
+#define FTT_TB_GROUP(C) (16 / (C))
+
+__device__ __forceinline__ int ftt_tb_off(int s, int W) {
+    const int o = (s >> 1) - (W >> 1);   // s >= -1: >> floors
+    return o > 0 ? o : 0;
+}
+
+// Bytes of q (t) that steps up to s can read: indices below these counts.
+__device__ __forceinline__ int ftt_tb_need_q(int s, int W) {
+    return ftt_tb_off(s, W) + W - 1;
+}
+__device__ __forceinline__ int ftt_tb_need_t(int s, int W) {
+    return s - ftt_tb_off(s, W);
+}
+
+template <int C>
+__device__ __forceinline__ void ftt_tb_ring_put(int8_t* ring, int x,
+                                                int8_t v) {
+    constexpr int R = FTT_TB_RING(C);
+    const int p = x & (R - 1);
+    ring[p] = v;
+    if (p < C) ring[p + R] = v;          // the mirror
+}
+
+// One anti-diagonal of one row: updates the lane's cells (p1 becomes s,
+// p2 becomes s-1) and its best boundary cell, and ors the step's moves
+// into the lane's trace word acc at bit `shift` = 2 * ((s-1) % G) * C.
+template <int C, int MODE>
+__device__ __forceinline__ void ftt_tb_step(
+    int s, int o, int d1, int d2, int lane, int ql, int tl, int end_bonus,
+    const int8_t* ring_q, const int8_t* ring_t, int (&p1)[C], int (&p2)[C],
+    int& best, int& best_s, int& best_i, int& best_d, unsigned& acc,
+    int shift) {
+    constexpr int R = FTT_TB_RING(C);
+    constexpr bool FAST = MODE != FTT_TB_EDGE;
+    if (FAST) { d1 = MODE == FTT_TB_FAST1; d2 = 1; }
+    const int i0 = o + lane * C;
+    // q[i-1] of cell c is qp[c]; t[j-1], j = s - i, is tp[C-1-c]
+    const int8_t* qp = ring_q + ((i0 - 1) & (R - 1));
+    const int8_t* tp = ring_t + ((s - i0 - C) & (R - 1));
+    // the one cell of a neighbour lane an operand can need; the band's two
+    // ends read INF
+    int nb_up = FTT_INF, nb_left = FTT_INF, nb_diag = FTT_INF;
+    if (!FAST || d1) {
+        nb_up = __shfl_down_sync(FTT_TB_FULL, p1[0], 1);
+        if (lane == 31) nb_up = FTT_INF;
+    }
+    if (!FAST || !d1) {
+        nb_left = __shfl_up_sync(FTT_TB_FULL, p1[C - 1], 1);
+        if (lane == 0) nb_left = FTT_INF;
+    }
+    if (!FAST) {
+        nb_diag = __shfl_up_sync(FTT_TB_FULL, p2[C - 1], 1);
+        if (lane == 0) nb_diag = FTT_INF;
+    }
+    int cur[C];
+    unsigned mine = 0;                   // this step's 2C bits
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        const int qc = qp[c];
+        const int tc = tp[C - 1 - c];
+        // D[i, j-1] is cell l + d1 of s-1, D[i-1, j] cell l + d1 - 1,
+        // D[i-1, j-1] cell l + d2 - 1 of s-2
+        const int p1_next = c + 1 < C ? p1[(c + 1) % C] : nb_up;
+        const int p1_prev = c > 0 ? p1[(c + C - 1) % C] : nb_left;
+        const int p2_prev = c > 0 ? p2[(c + C - 1) % C] : nb_diag;
+        const int up = d1 ? p1_next : p1[c];
+        const int left = d1 ? p1[c] : p1_prev;
+        const int diag = d2 ? p2[c] : p2_prev;
+        const int side = min(up, left);
+        const int v_diag = diag + (qc != tc ? 1 : 0);
+        int cand = min(side + 1, v_diag);
+        // ties prefer diag, then up, then left
+        bool b0 = v_diag != cand && up == side;      // move 1: up
+        bool b1 = v_diag != cand && up != side;      // move 2: left
+        if (!FAST) {
+            const int i = i0 + c;
+            const int j = s - i;
+            if (i == 0) { cand = j; b0 = true; b1 = false; }
+            if (j == 0) { cand = i; b0 = false; b1 = true; }
+            const bool valid = i <= ql && j >= 0 && j <= tl;
+            cand = valid ? min(cand, FTT_INF) : FTT_INF;
+            b0 = b0 && valid;
+            b1 = b1 && valid;
+            if ((i == ql || j == tl) && cand < FTT_INF) {
+                const int sc = s - end_bonus * cand;
+                if (sc > best) {
+                    best = sc; best_s = s; best_i = i; best_d = cand;
+                }
+            }
+        }
+        cur[c] = cand;
+        mine |= (b0 ? 1u : (b1 ? 2u : 0u)) << (2 * c);
+    }
+    acc |= mine << shift;
+#pragma unroll
+    for (int c = 0; c < C; ++c) { p2[c] = p1[c]; p1[c] = cur[c]; }
+}
+
+// Sweeps row b with the calling warp.  wsmem: this warp's
+// FTT_TB_WARP_SMEM(C) bytes of shared memory.  trow: the row's trace,
+// [2L / G][32] words.  Lane 0 writes (i, j, d) to ends[b], ends[B + b],
+// ends[2B + b].
+template <int C>
+__device__ void ftt_tb_sweep(const int8_t* __restrict__ qr,
+                             const int8_t* __restrict__ tr, int ql, int tl,
+                             int b, int B, int L, int end_bonus,
+                             int* __restrict__ ends,
+                             unsigned* __restrict__ trow,
+                             unsigned char* wsmem) {
+    constexpr int W = 32 * C;
+    constexpr int K = FTT_TB_CHUNK;
+    constexpr int NQ = K / 64 + 1;       // prefetch registers: a chunk
+    constexpr int NT = K / 32;           // needs <= K/2 + 1 new q, <= K new t
+    constexpr int G = FTT_TB_GROUP(C);
+    int8_t* ring_q = (int8_t*)wsmem;
+    int8_t* ring_t = ring_q + FTT_TB_RING_ALLOC(C);
+    const int lane = threadIdx.x & 31;
+    const int S = min(max(ql + tl, 0), 2 * L);
+
+    // the bytes of the first chunk, loaded directly
+    int fq = ftt_tb_need_q(K, W);
+    int ft = ftt_tb_need_t(K, W);
+    for (int x = lane; x < fq; x += 32)
+        ftt_tb_ring_put<C>(ring_q, x, x < L ? qr[x] : (int8_t)4);
+    for (int x = lane; x < ft; x += 32)
+        ftt_tb_ring_put<C>(ring_t, x, x < L ? tr[x] : (int8_t)5);
+    __syncwarp();
+
+    int p1[C], p2[C];                    // anti-diagonals s-1 and s-2
+#pragma unroll
+    for (int c = 0; c < C; ++c) { p1[c] = FTT_INF; p2[c] = FTT_INF; }
+    if (lane == 0) p1[0] = 0;            // s = 0: D[0, 0] at cell 0
+
+    int best = FTT_NEG, best_s = 0, best_i = 0, best_d = 0;
+    unsigned acc = 0;                    // the lane's trace word in the making
+    for (int s0 = 1; s0 <= S; s0 += K) {
+        // what the next chunk reads beyond the rings' fronts, into registers
+        const bool more = s0 + K <= S;
+        const int nq = ftt_tb_need_q(s0 + 2 * K - 1, W);
+        const int nt = ftt_tb_need_t(s0 + 2 * K - 1, W);
+        int8_t pq[NQ], pt[NT];
+        if (more) {
+#pragma unroll
+            for (int u = 0; u < NQ; ++u) {
+                const int x = fq + lane + 32 * u;
+                pq[u] = (x < nq && x < L) ? qr[x] : (int8_t)4;
+            }
+#pragma unroll
+            for (int u = 0; u < NT; ++u) {
+                const int x = ft + lane + 32 * u;
+                pt[u] = (x < nt && x < L) ? tr[x] : (int8_t)5;
+            }
+        }
+        const int s_end = min(s0 + K - 1, S);
+        for (int s = s0; s <= s_end; ++s) {
+            const int o = ftt_tb_off(s, W);
+            const int d1 = o - ftt_tb_off(s - 1, W);   // 0 or 1, per warp
+            const int d2 = o - ftt_tb_off(s - 2, W);
+            const int u = (s - 1) & (G - 1);
+            const int shift = 2 * u * C;
+            // interior: the window moves, and i in [o, o + W - 1] and
+            // j in [s - o - W + 1, s - o] lie strictly inside the row
+            const bool fast = s >= W + 4 && o + W - 1 < ql && s - o < tl &&
+                              s - o - W >= 0;
+            if (!fast)
+                ftt_tb_step<C, FTT_TB_EDGE>(s, o, d1, d2, lane, ql, tl,
+                                            end_bonus, ring_q, ring_t, p1,
+                                            p2, best, best_s, best_i,
+                                            best_d, acc, shift);
+            else if (d1)
+                ftt_tb_step<C, FTT_TB_FAST1>(s, o, d1, d2, lane, ql, tl,
+                                             end_bonus, ring_q, ring_t, p1,
+                                             p2, best, best_s, best_i,
+                                             best_d, acc, shift);
+            else
+                ftt_tb_step<C, FTT_TB_FAST0>(s, o, d1, d2, lane, ql, tl,
+                                             end_bonus, ring_q, ring_t, p1,
+                                             p2, best, best_s, best_i,
+                                             best_d, acc, shift);
+            if (u == G - 1 || s == S) {  // the word is full, or the row ends
+                trow[(size_t)((s - 1) / G) * 32 + lane] = acc;
+                acc = 0;
+            }
+        }
+        if (more) {
+            __syncwarp();                // the chunk's reads are done
+#pragma unroll
+            for (int u = 0; u < NQ; ++u) {
+                const int x = fq + lane + 32 * u;
+                if (x < nq) ftt_tb_ring_put<C>(ring_q, x, pq[u]);
+            }
+#pragma unroll
+            for (int u = 0; u < NT; ++u) {
+                const int x = ft + lane + 32 * u;
+                if (x < nt) ftt_tb_ring_put<C>(ring_t, x, pt[u]);
+            }
+            fq = nq;
+            ft = nt;
+            __syncwarp();
+        }
+    }
+    // per-lane bests -> one winner: highest score, earliest s, lowest i
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1) {
+        const int o_sc = __shfl_xor_sync(FTT_TB_FULL, best, off);
+        const int o_s = __shfl_xor_sync(FTT_TB_FULL, best_s, off);
+        const int o_i = __shfl_xor_sync(FTT_TB_FULL, best_i, off);
+        const int o_d = __shfl_xor_sync(FTT_TB_FULL, best_d, off);
+        if (o_sc > best || (o_sc == best &&
+                            (o_s < best_s ||
+                             (o_s == best_s && o_i < best_i)))) {
+            best = o_sc; best_s = o_s; best_i = o_i; best_d = o_d;
+        }
+    }
+    if (lane == 0) {
+        const bool found = best > FTT_NEG;
+        ends[b] = found ? best_i : 0;
+        ends[B + b] = found ? best_s - best_i : 0;
+        ends[2 * B + b] = found ? best_d : 0;
+    }
+}

@@ -4,7 +4,7 @@ At first use, one nvcc per csrc/*.cu source, all started together,
 compiles it for sm_90a into falcon_tpu_torch/_build/ (git ignores it), and
 a last nvcc links the objects into one shared library with a plain C
 interface; a source or header newer than the library triggers a rebuild,
-the way falcon_tpu/ops/native.py rebuilds its host library.  The library is
+the way ops/native.py rebuilds the host library beside it.  The library is
 loaded with ctypes.  A missing nvcc or a failed build raises.
 
 Every C entry launches on the stream it is given and returns
@@ -94,7 +94,7 @@ def lib():
         so.ftt_extend.restype = i
         so.ftt_tb_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
         so.ftt_tb_fwd.restype = i
-        so.ftt_tb_bwd.argtypes = [p, p, i, i, i, p, p, p]
+        so.ftt_tb_bwd.argtypes = [p, p, p, i, i, i, p, p, p]
         so.ftt_tb_bwd.restype = i
         so.ftt_tags.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                 ctypes.c_float, p]
@@ -118,7 +118,8 @@ def check(code, what):
 def check_batch(q, qlen, t, tlen, W):
     """Validate one [B, L] batch for K1/K2: int8 q/t of one shape, int32
     [B] lengths, all contiguous on one device; W a multiple of 32 in
-    [32, 1024] (one thread per band lane)."""
+    [32, 1024] (K1 runs one thread per band lane and takes all of them;
+    K2 narrows W further, align_tb_cuda.WIDTHS)."""
     if q.dim() != 2 or t.shape != q.shape:
         raise ValueError("q and t must both be [B, L]; got %s and %s"
                          % (tuple(q.shape), tuple(t.shape)))

@@ -25,9 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from falcon_tpu.utils.system import heartbeat_tick
-
 from ..utils.device import resolve_device
+from ..utils.system import heartbeat_tick
 
 LOG = logging.getLogger(__name__)
 

@@ -1,10 +1,13 @@
 """Pipeline driver of the port: raw reads -> preads -> string graph ->
 contigs + GFA on one GPU (port of falcon_tpu/pipeline/driver.py).
 
-Pipeline subclasses falcon_tpu's driver, whose phases, resume logic and
-artifacts it keeps, and replaces only what reaches JAX there:
+Pipeline keeps falcon_tpu's phases, resume logic and artifact writers
+(_engine_params, _make_group, phase1, phase2 and the helpers are copies of
+falcon_tpu/pipeline/driver.py's) and differs where that driver reaches
+JAX:
 
-  __init__        no parallel.distributed (single host), explicit device
+  __init__        no multi-host initialisation (single host), explicit
+                  device
   _aligner        the port's make_device_aligner(W=256); no host fallback
   _overlap_store  the single-host block-pair triangle, no all-gather
   phase0          consensus through the port's run_consensus_device
@@ -26,27 +29,37 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from falcon_tpu import config as config_mod
-from falcon_tpu.cns import runner as cns_runner
-from falcon_tpu.io import fasta, integrity, readstore
-from falcon_tpu.ops import native as native_ops
-from falcon_tpu.overlap import engine
-from falcon_tpu.overlap import table as otable
-from falcon_tpu.parallel.distributed import host_block_pairs
-from falcon_tpu.pipeline import driver as ref
-from falcon_tpu.pipeline import stats as stats_mod
-from falcon_tpu.utils import system
-
+from .. import config as config_mod
+from ..cns import runner as cns_runner
 from ..cns.device import DeviceCns, run_consensus_device
-from ..overlap.engine import make_device_aligner
+from ..graph import to_contig, unitigs
+from ..graph.collect_gfa import collect_contig_gfa, collect_pread_gfa
+from ..graph.gfa import deserialize_gfa
+from ..io import fasta, integrity, readstore
+from ..ops import native as native_ops
+from ..overlap import engine, filter as ofilter
+from ..overlap import table as otable
+from ..parallel.distributed import host_block_pairs
+from ..utils import system
 from ..utils.device import resolve_device
+from . import stats as stats_mod
 
 LOG = logging.getLogger(__name__)
 
 AVIEW_LRU = 4
 
 
-class Pipeline(ref.Pipeline):
+def _done(path):
+    return os.path.exists(path)
+
+
+def _resumable(path, what):
+    """Artifact-presence resume + integrity gate (the LAcheck analog,
+    io.integrity): present AND not failing its sidecar check."""
+    return os.path.exists(path) and integrity.check_resume(path, what)
+
+
+class Pipeline:
     def __init__(self, cfg_path, out_dir=".", device=None):
         self.device = resolve_device(device)
         self.cfg = config_mod.parse_cfg_file(cfg_path)
@@ -60,6 +73,20 @@ class Pipeline(ref.Pipeline):
         self.timings = {}
         system.set_heartbeat_dir(self.out_dir)
 
+    # -- helpers -----------------------------------------------------------
+    def _engine_params(self, stage):
+        p = self.p
+        if stage == 0:
+            return engine.OverlapParams(
+                k=p.overlap_k, min_hits=p.overlap_min_hits,
+                band_tolerance=p.overlap_band, stride=p.overlap_stride,
+                min_overlap=p.raw_ovl_minlen, min_idt=p.raw_ovl_idt)
+        # preads are ~99.9%% identical: sparse seeding suffices
+        return engine.OverlapParams(
+            k=p.overlap_k, min_hits=p.overlap_min_hits,
+            band_tolerance=p.overlap_band, stride=p.overlap_stride_pr,
+            min_overlap=p.pr_ovl_minlen, min_idt=p.pr_ovl_idt)
+
     def _aligner(self):
         """The device extension path (K1); None when the cfg turns the
         device off (use_device = false), which selects the host aligner
@@ -68,7 +95,7 @@ class Pipeline(ref.Pipeline):
             return None
         # W is the extension DP's band (drift tolerance W/2), not the
         # greedy band_tolerance
-        return make_device_aligner(W=256, device=self.device)
+        return engine.make_device_aligner(W=256, device=self.device)
 
     def _overlap_store(self, store, params, tag, ckpt_dir=None):
         """All-vs-all overlap over the store's block-pair triangle on this
@@ -160,9 +187,19 @@ class Pipeline(ref.Pipeline):
             self.timings["%s_occupancy" % tag] = round(occ, 4)
         return engine.emit_symmetric(tbl)
 
+    @staticmethod
+    def _drop_pair_ckpts(ckpt_dir, tag):
+        """Per-pair checkpoints are subsumed by the phase's final table;
+        drop them once that table is durable."""
+        import shutil
+        d = os.path.join(ckpt_dir, tag + "_pairs")
+        if os.path.isdir(d):
+            shutil.rmtree(d, ignore_errors=True)
+
+    # -- phase 0: raw reads -> preads --------------------------------------
     def phase0(self):
         preads_fn = os.path.join(self.dir0, "preads.fasta")
-        if ref._resumable(preads_fn, "phase0 preads"):
+        if _resumable(preads_fn, "phase0 preads"):
             LOG.info("phase0: %s exists; skipping", preads_fn)
             return preads_fn
         t_start = time.time()
@@ -170,7 +207,7 @@ class Pipeline(ref.Pipeline):
         system.touch_heartbeat(self.out_dir)
 
         store_fn = os.path.join(self.dir0, "raw_reads")
-        if ref._resumable(store_fn + ".npz", "phase0 readstore"):
+        if _resumable(store_fn + ".npz", "phase0 readstore"):
             store = readstore.ReadStore.load(store_fn)
         else:
             fofn = self.cfg["input_fofn"]
@@ -198,7 +235,7 @@ class Pipeline(ref.Pipeline):
             f.write(str(cutoff) + "\n")
 
         ovl_fn = os.path.join(self.dir0, "raw_overlaps.ovl")
-        if ref._resumable(ovl_fn, "phase0 overlap table"):
+        if _resumable(ovl_fn, "phase0 overlap table"):
             LOG.info("phase0: %s exists; skipping overlap", ovl_fn)
             recs = otable.read_table(ovl_fn)
             self.timings["phase0_overlap"] = 0.0
@@ -300,6 +337,130 @@ class Pipeline(ref.Pipeline):
             LOG.exception("phase0: stats report failed (non-fatal)")
         return preads_fn
 
+    def _make_group(self, store, rows, cutoff, as_codes=False):
+        """(seed_id, [(read_id, seq, rng), ...]) with the seed first.
+
+        rows: one seed's slice of the columnar overlap table.
+        rng = (s1, e1, s2, e2): the support/seed alignment range from the
+        overlap record, on the seed's strand (the device consensus path
+        reuses these instead of re-seeding; reference fc_consensus gets
+        bare sequences over the LA4Falcon pipe and must re-seed).
+        as_codes: supports stay uint8 code arrays (the device path
+        consumes codes; decoding 10^5..10^6 supports to strings just to
+        re-encode them costs tens of seconds at E. coli scale)."""
+        rid = int(rows["a_id"][0])
+        if store.lengths[rid] < cutoff:
+            return None
+        seed_id = "%09d" % rid
+        seed_seq = store.get_seq(rid)
+        out = [(seed_id, seed_seq, None)]
+        skip_contained = self.p.skip_contained
+        for o in rows:
+            if skip_contained and int(o["klass"]) == otable.CONTAINS:
+                # falcon_sense_skip_contained: LA4Falcon -s drops supports
+                # contained in the seed (reference bash.py:350-351)
+                continue
+            b_rid = int(o["b_id"])
+            codes = store.get_codes(b_rid)
+            b_start, b_end = int(o["b_start"]), int(o["b_end"])
+            a_start, a_end = int(o["a_start"]), int(o["a_end"])
+            if int(o["b_strand"]) == 1:
+                codes = readstore.revcomp_codes(codes)
+                b_len = int(o["b_len"])
+                rng = (b_len - b_end, b_len - b_start, a_start, a_end)
+            else:
+                rng = (b_start, b_end, a_start, a_end)
+            out.append(("%09d" % b_rid, codes if as_codes
+                        else readstore.decode_seq(codes), rng))
+        return seed_id, out
+
+    # -- phase 1: pread overlap --------------------------------------------
+    def phase1(self, preads_fn):
+        """preads_fn: one pread FASTA path (the phase-0 product) or a
+        list of paths (input_type=preads: the user's own pread FASTAs
+        feed this phase directly, stage 0 skipped -- the working version
+        of reference run1.py:485-508's unfinished preads branch)."""
+        ovl_fn = os.path.join(self.dir1, "preads.ovl")
+        p4f = os.path.join(self.dir2, "preads4falcon.fasta")
+        if _resumable(ovl_fn, "phase1 preads.ovl") and \
+                _resumable(p4f, "phase1 preads4falcon"):
+            LOG.info("phase1: %s exists; skipping", ovl_fn)
+            return ovl_fn
+        t_start = time.time()
+        p = self.p
+        system.touch_heartbeat(self.out_dir)
+
+        paths = [preads_fn] if isinstance(preads_fn, str) else \
+            list(preads_fn)
+        store = readstore.ReadStore.from_fasta_files(
+            paths, min_len=p.pr_min_len)
+        store.split_blocks(int(p.pr_block_mb * 1e6))
+        LOG.info("phase1: %d preads, %d bases", len(store),
+                 store.total_bases)
+        # renumber preads: DB2Falcon gives dense %09d ids; keep the
+        # original (prolog/<seed>) names as the id-dump for read tracking
+        orig_names = list(store.names)
+        names = ["%09d" % i for i in range(len(store))]
+        store.names = names
+        with open(os.path.join(self.dir1, "pread_ids"), "w") as f:
+            for pid, name in zip(names, orig_names):
+                f.write("%s %s\n" % (pid, name))
+        fasta.write_fasta(p4f, ((names[i], store.get_seq(i))
+                                for i in range(len(store))))
+        integrity.write_sidecar(p4f, rows=len(store))
+
+        recs = self._overlap_store(store, self._engine_params(1), "phase1",
+                                   ckpt_dir=self.dir1)
+        self.timings["phase1_overlap"] = time.time() - t_start
+
+        with open(ovl_fn + ".tmp", "w") as f:
+            ofilter.filter_table(
+                f, recs, max_diff=p.filt_max_diff,
+                max_cov=p.filt_max_cov, min_cov=p.filt_min_cov,
+                min_len=p.filt_min_len, bestn=p.filt_bestn)
+        os.rename(ovl_fn + ".tmp", ovl_fn)
+        integrity.write_sidecar(ovl_fn)
+        self._drop_pair_ckpts(self.dir1, "phase1")
+        return ovl_fn
+
+    # -- phase 2: assembly --------------------------------------------------
+    def phase2(self, ovl_fn):
+        d = self.dir2
+        p = self.p
+        system.touch_heartbeat(self.out_dir)
+        if not _done(os.path.join(d, "p_ctg.fa")):
+            t0 = time.time()
+            local_ovl = os.path.join(d, "preads.ovl")
+            if os.path.abspath(ovl_fn) != os.path.abspath(local_ovl):
+                import shutil
+                shutil.copyfile(ovl_fn, local_ovl)
+            unitigs.ovlp_to_graph(local_ovl, d, min_len=p.graph_min_len,
+                                  min_idt=p.graph_min_idt, lfc=p.graph_lfc)
+            to_contig.run(d)
+            to_contig.dedup_a_tigs(d)
+            self.timings["phase2_graph"] = time.time() - t0
+
+        # GFA outputs (reference: TASK_RUN_FALCON_ASM_SCRIPT,
+        # pype_tasks.py:121-164)
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            with open("asm.gfa.json", "w") as f:
+                collect_pread_gfa(f)
+            with open("sg.gfa.json", "w") as f:
+                collect_pread_gfa(f, add_string_graph=True)
+            with open("contig.gfa2.json", "w") as f:
+                collect_contig_gfa(f)
+            with open("asm.gfa.json") as j, open("asm.gfa", "w") as f:
+                deserialize_gfa(j).write_gfa_v1(f)
+            with open("sg.gfa.json") as j, open("sg.gfa", "w") as f:
+                deserialize_gfa(j).write_gfa_v1(f)
+            with open("contig.gfa2.json") as j, open("contig.gfa2", "w") as f:
+                deserialize_gfa(j).write_gfa_v2(f)
+        finally:
+            os.chdir(cwd)
+        return os.path.join(d, "p_ctg.fa")
+
     def run(self):
         profile_dir = os.environ.get("FTPU_PROFILE", "")
         if not profile_dir:
@@ -377,6 +538,25 @@ def device_busy(trace_fn):
                                    key=lambda kv: -kv[1][1]))
 
 
+def setup_logging(logger_cfg=None):
+    """Default stderr INFO logging, or a user logging config file --
+    .json (logging.config.dictConfig) or .ini (fileConfig), the reference
+    fc_run's second positional argument
+    (reference: run_support.py:463-534)."""
+    if logger_cfg:
+        import json as _json
+        import logging.config as _lc
+        if logger_cfg.endswith(".json"):
+            with open(logger_cfg) as f:
+                _lc.dictConfig(_json.load(f))
+        else:
+            _lc.fileConfig(logger_cfg)
+        return
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     if not argv:
@@ -390,6 +570,6 @@ def main(argv=None):
             logger_cfg = argv[1]
         else:
             out_dir = argv[1]
-    ref.setup_logging(logger_cfg)
+    setup_logging(logger_cfg)
     Pipeline(argv[0], out_dir).run()
     return 0

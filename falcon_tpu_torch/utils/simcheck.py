@@ -2,7 +2,7 @@
 port.
 
 write_sim_run lays out a pipeline run on a genome simulated with
-falcon_tpu.utils.sim (reads, input.fofn, a [General] cfg in the style of
+utils.sim (reads, input.fofn, a [General] cfg in the style of
 bench_e2e.py, and the truth genome).  score_assembly scores p_ctg.fa
 against that truth the way tools/check_assembly.py does -- windows
 anchored on the truth by an exact probe, then aligned there by the host
@@ -13,11 +13,11 @@ import os
 
 import numpy as np
 
-from falcon_tpu.graph.to_contig import rc
-from falcon_tpu.io import fasta
-from falcon_tpu.ops import align as pyalign
-from falcon_tpu.ops import native
-from falcon_tpu.utils import sim
+from ..graph.to_contig import rc
+from ..io import fasta
+from ..ops import align as pyalign
+from ..ops import native
+from . import sim
 
 CFG = """[General]
 input_fofn = input.fofn

@@ -7,7 +7,8 @@ setup(
                 "(JAX/XLA/Pallas re-design of the FALCON/HGAP engine)",
     packages=find_packages(include=["falcon_tpu", "falcon_tpu.*",
                                     "falcon_tpu_torch", "falcon_tpu_torch.*"]),
-    package_data={"falcon_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"falcon_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                       "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     entry_points={

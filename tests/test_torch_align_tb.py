@@ -1,6 +1,7 @@
 """falcon_tpu_torch.ops.align_tb (plain twin of K2 + K3) against
 falcon_tpu's align_tb_batch and align_tb_batch_pallas on the CPU: bit-equal
-on (i, j, d, packed moves, bases)."""
+on (i, j, d, packed moves, bases); plus the two-bit trace between K2 and K3
+(pack_trace / unpack_trace) and the batcher's budget for it."""
 import numpy as np
 import pytest
 import torch
@@ -9,8 +10,11 @@ import jax.numpy as jnp
 
 from falcon_tpu.ops import align_tb as jtb
 from falcon_tpu.ops.align_tb_pallas import align_tb_batch_pallas
+from falcon_tpu_torch.cns import device as tdev
 from falcon_tpu_torch.ops import align_tb as ttb
-from falcon_tpu_torch.ops.align_tb_cuda import align_tb_batch_cuda
+from falcon_tpu_torch.ops.align_device import DeviceExtender, band_sweep
+from falcon_tpu_torch.ops.align_tb_cuda import (WIDTHS, align_tb_batch_cuda,
+                                                trace_row_bytes)
 
 from tests.test_torch_align_device import _edge_rows, _pairs
 
@@ -68,3 +72,95 @@ def test_moves_roundtrip():
     np.testing.assert_array_equal(
         ttb.pack_moves(torch.from_numpy(odd)).numpy(),
         np.asarray(jtb.pack_moves(jnp.asarray(odd))))
+
+
+@pytest.mark.parametrize("W,L", [(32, 96), (64, 128), (256, 320)])
+def test_trace_roundtrip(W, L, monkeypatch):
+    """band_sweep's planes -> two bits a cell -> planes again, on rows of
+    full length, rows shorter than the batch's L and the edge rows; the
+    conversion in chunks of about 50 steps, so the chunk seams are crossed.
+    The layout is the kernels': with C = W/32 and G = 16/C, word (s-1)//G
+    of lane n holds the move of cell n*C + c at step s in field
+    ((s-1) % G)*C + c, two bits a field."""
+    monkeypatch.setattr(ttb, "TRACE_CHUNK", 50)
+    q, qlen, t, tlen = _pairs(8, L, err=0.15, seed=3)
+    _edge_rows(q, qlen, t, tlen, seed=4)
+    qlen[5], tlen[5] = min(qlen[5], 40), min(tlen[5], 37)   # a short row
+    q[5, qlen[5]:] = 4
+    t[5, tlen[5]:] = 5
+    args = [torch.from_numpy(a) for a in (q, qlen, t, tlen)]
+    ends, planes = band_sweep(*args, W, 3, keep_moves=True)
+    S = planes.shape[0]
+    assert S <= 2 * L
+    # band_sweep leaves the planes of finished rows unwritten
+    planes = planes.clamp(0, 2)
+    trace = ttb.pack_trace(planes, L)
+    assert trace.dtype == torch.int32
+    C = W // 32
+    G = 16 // C
+    assert tuple(trace.shape) == (8, 2 * L // G, 32)
+    assert trace.numel() * 4 == 8 * trace_row_bytes(L, W)
+    back = ttb.unpack_trace(trace, W)
+    assert tuple(back.shape) == (2 * L, 8, W)
+    assert torch.equal(back[:S], planes)
+    assert int(back[S:].abs().sum()) == 0
+    rng = np.random.RandomState(5)
+    for _ in range(50):
+        s, b, l = rng.randint(S), rng.randint(8), rng.randint(W)
+        n, c = divmod(l, C)
+        field = (s % G) * C + c               # s here is step - 1
+        word = int(trace[b, s // G, n]) & 0xffffffff
+        assert (word >> (2 * field)) & 3 == int(planes[s, b, l])
+    # the walk over the round-tripped planes is the walk over the planes
+    mv, bases = ttb.walk_back(args[0], ends, back[:S], W)
+    ref_mv, ref_bases = ttb.walk_back(args[0], ends, planes, W)
+    assert torch.equal(mv, ref_mv) and torch.equal(bases, ref_bases)
+
+
+@pytest.mark.parametrize("kind", ["cpu", "cuda"])
+def test_batch_for_fits_the_trace_budget(kind, monkeypatch):
+    """Rows x trace bytes per row stays inside moves_budget for every
+    ladder length: two bits a cell for the kernels, the twin's byte a cell
+    on the CPU; and the row and cell caps hold."""
+    monkeypatch.setattr(tdev, "resolve_device",
+                        lambda d=None: torch.device(kind, 0)
+                        if kind == "cuda" else torch.device("cpu"))
+    cns = tdev.DeviceCns(use_dp=False)
+    assert cns.device.type == kind
+    rows = {}
+    for L in DeviceExtender.LADDER:
+        B = rows[L] = cns._batch_for(L)
+        per_row = trace_row_bytes(L, cns.W) if kind == "cuda" \
+            else 2 * L * cns.W
+        assert cns._trace_row_bytes(L) == per_row
+        assert 1 <= B <= cns.max_rows
+        assert B * per_row <= cns.moves_budget
+        assert B * L <= cns.max_cells
+        # the batch is as large as the three bounds allow
+        assert (B + 1) * per_row > cns.moves_budget or \
+            (B + 1) * L > cns.max_cells or B == cns.max_rows
+    if kind == "cuda":
+        # four times the rows of a byte-a-cell trace under the same budget
+        assert rows[16384] == 4 * (cns.moves_budget // (2 * 16384 * cns.W))
+        assert rows[1024] == 4096
+    else:
+        assert rows[1024] == 1024 and rows[16384] == 64
+
+
+@pytest.mark.parametrize("W", [96, 192, 512])
+def test_device_cns_rejects_a_band_the_kernels_lack(W, monkeypatch):
+    """On a CUDA device DeviceCns refuses, when it is built, a band K2/K3
+    are not instantiated for, given as an argument or by FTPU_CNS_W; on the
+    CPU the twin takes it."""
+    monkeypatch.setattr(tdev, "resolve_device",
+                        lambda d=None: torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="FTPU_CNS_W"):
+        tdev.DeviceCns(W=W, use_dp=False)
+    monkeypatch.setenv("FTPU_CNS_W", str(W))
+    with pytest.raises(ValueError, match="FTPU_CNS_W"):
+        tdev.DeviceCns(use_dp=False)
+    for ok in WIDTHS:
+        assert tdev.DeviceCns(W=ok, use_dp=False).W == ok
+    monkeypatch.setattr(tdev, "resolve_device",
+                        lambda d=None: torch.device("cpu"))
+    assert tdev.DeviceCns(use_dp=False).W == W

@@ -10,11 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dp_batch, ladder_walk, make_pairs
+from chip_smoke import dp_batch, ladder_walk, make_pairs, swept_cells_equal
+from falcon_tpu_torch.cns.device import DeviceCns
 from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp
 from falcon_tpu_torch.ops import cns_dp_cuda as dpk
-from falcon_tpu_torch.ops.align_device import extend_batch
-from falcon_tpu_torch.ops.align_tb import align_tb_batch
+from falcon_tpu_torch.ops.align_device import band_sweep, extend_batch
+from falcon_tpu_torch.ops.align_tb import (align_tb_batch, pack_moves,
+                                           pack_trace, unpack_trace,
+                                           walk_back)
 
 pytestmark = pytest.mark.gpu
 
@@ -36,7 +39,11 @@ def test_k1_matches_twin(rng, W, L, B):
     assert torch.equal(got, extend_batch(*args, W=W))
 
 
-@pytest.mark.parametrize("W,L,B", [(64, 512, 24), (256, 2048, 16)])
+TB_SHAPES = [(32, 256, 40), (64, 512, 24), (128, 1024, 70),
+             (256, 2048, 16), (256, 1024, 130)]
+
+
+@pytest.mark.parametrize("W,L,B", TB_SHAPES)
 def test_k2_k3_match_twin(rng, W, L, B):
     args = make_pairs(rng, B, L, W)
     got = align_tb_cuda.align_tb_batch_cuda(*args, W=W)
@@ -44,6 +51,51 @@ def test_k2_k3_match_twin(rng, W, L, B):
     for name, g, r in zip("i j d moves bases".split(), got,
                           align_tb_batch(*args, W=W)):
         assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("W,L,B", TB_SHAPES)
+def test_k2_matches_band_sweep(rng, W, L, B):
+    """K2's ends, and its two-bit trace on every cell a row swept."""
+    args = make_pairs(rng, B, L, W)
+    n = align_tb_cuda.LAUNCHES["tb_fwd"]
+    ends, trace = align_tb_cuda.tb_forward_cuda(*args, W, 3)
+    torch.cuda.synchronize()
+    assert align_tb_cuda.LAUNCHES["tb_fwd"] == n + 1
+    p_ends, planes = band_sweep(*args, W, 3, keep_moves=True)
+    assert torch.equal(ends, p_ends)
+    same, cells = swept_cells_equal(unpack_trace(trace, W), planes, args[1],
+                                    args[3], W)
+    assert same and cells > 0
+
+
+@pytest.mark.parametrize("W,L,B", TB_SHAPES)
+def test_k3_matches_walk_back(rng, W, L, B):
+    """K3 on the plain sweep's trace and ends."""
+    args = make_pairs(rng, B, L, W)
+    p_ends, planes = band_sweep(*args, W, 3, keep_moves=True)
+    n = align_tb_cuda.LAUNCHES["tb_bwd"]
+    moves, bases = align_tb_cuda.tb_backward_cuda(
+        pack_trace(planes, L), p_ends, args[0], W)
+    torch.cuda.synchronize()
+    assert align_tb_cuda.LAUNCHES["tb_bwd"] == n + 1
+    p_moves, p_bases = walk_back(args[0], p_ends, planes, W)
+    assert torch.equal(moves, pack_moves(p_moves))
+    assert torch.equal(bases, p_bases)
+
+
+def test_k2_k3_reject_what_they_do_not_take(rng):
+    q, ql, t, tl = make_pairs(rng, 8, 256, 64)
+    with pytest.raises(ValueError):           # a band with no instantiation
+        align_tb_cuda.align_tb_batch_cuda(q, ql, t, tl, W=96)
+    with pytest.raises(ValueError):           # L not a multiple of 16
+        align_tb_cuda.align_tb_batch_cuda(
+            q[:, :250].contiguous(), ql.clamp_max(250),
+            t[:, :250].contiguous(), tl.clamp_max(250), W=64)
+    ends, trace = align_tb_cuda.tb_forward_cuda(q, ql, t, tl, 64, 3)
+    with pytest.raises(ValueError):           # q on the CPU beside the trace
+        align_tb_cuda.tb_backward_cuda(trace, ends, q.cpu(), 64)
+    with pytest.raises(ValueError):           # refused before any launch
+        DeviceCns(W=96, device="cuda")
 
 
 def test_k1_rejects_cpu_only_inputs(rng):

@@ -1,9 +1,12 @@
 """The whole slice on the CPU: the port's Pipeline against falcon_tpu's device
 pipeline (XLA extension and consensus alignment), byte-equal on every
 artifact from raw overlaps to GFA; plus the port's guarantees that it
-imports no JAX and never falls back to the CPU on its own."""
+imports no JAX and nothing of falcon_tpu, that its copies of falcon_tpu's
+host modules have not drifted, and that it never falls back to the CPU on
+its own."""
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -66,8 +69,8 @@ def test_pipeline_matches_jax(tmp_path, monkeypatch, G, coverage, mean_len,
 
 def test_port_imports_no_jax():
     """Every falcon_tpu_torch module, and tiny runs of the extension and
-    consensus-scan twins, in a fresh interpreter: no jax module comes in
-    with them."""
+    consensus-scan twins, in a fresh interpreter: no jax module and no
+    falcon_tpu module comes in with them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         before = set(sys.modules)
@@ -90,6 +93,9 @@ def test_port_imports_no_jax():
         new = set(sys.modules) - before
         jax = sorted(m for m in new if m == "jax" or m.startswith("jax."))
         assert not jax, jax
+        ref = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("falcon_tpu", "jaxlib"))
+        assert not ref, ref
         print("ok", len(new))
     """)
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep +
@@ -98,6 +104,131 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "falcon_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_port_sources_import_no_falcon_tpu():
+    """No source of the port, and not chip_smoke.py, names falcon_tpu or
+    jax in an import statement."""
+    pat = re.compile(r"^\s*(from|import)\s+(falcon_tpu|jax|jaxlib)([\s.]|$)",
+                     re.M)
+    srcs = _port_sources()
+    assert len(srcs) > 40
+    bad = [os.path.relpath(p, REPO) for p in srcs
+           if pat.search(open(p).read())]
+    assert not bad, bad
+
+
+# falcon_tpu host modules that the port keeps verbatim copies of (same
+# relative path).  A copy may differ from its source in import lines and in
+# the package's name, nowhere else.  A PR that changes a copy on purpose
+# takes the file off this list and says why.  Not here, because they are
+# ports or merges and not copies: ops/native.py (builds into the port's own
+# _build/), overlap/engine.py (the port's make_device_aligner),
+# cns/device.py, pipeline/driver.py, parallel/distributed.py.
+COPIES = """utils/system.py utils/pool.py utils/sim.py config.py io/__init__.py
+io/fasta.py io/readstore.py io/masking.py io/integrity.py io/ser.py
+native/falcon_native.cpp ops/kmer.py ops/align.py ops/consensus_dp.py
+overlap/table.py overlap/records.py overlap/filter.py overlap/stats.py
+cns/runner.py graph/sg.py graph/unitigs.py graph/to_contig.py
+graph/to_utgs.py graph/tiling.py graph/asm_graph.py graph/gfa.py
+graph/collect_gfa.py pipeline/stats.py""".split()
+
+
+def _normalised(path):
+    """The file's lines without import lines, the package's name folded;
+    of the C++ source without its leading comment block too, which names
+    where the reference C lay when falcon_tpu was written and is worded
+    otherwise in the copy."""
+    text = open(path).read().replace("falcon_tpu_torch", "falcon_tpu")
+    lines = text.split("\n")
+    if path.endswith(".cpp"):
+        first = next(k for k, ln in enumerate(lines)
+                     if ln and not ln.startswith("//"))
+        lines = lines[first:]
+    return [ln for ln in lines if not re.match(r"\s*(from|import)\s", ln)]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_matches_its_source(rel):
+    src = os.path.join(REPO, "falcon_tpu", rel)
+    copy = os.path.join(REPO, "falcon_tpu_torch", rel)
+    assert _normalised(copy) == _normalised(src), \
+        "%s drifted from falcon_tpu/%s" % (rel, rel)
+
+
+def test_copied_halves_match_their_source():
+    """The host functions copied into modules the port otherwise wrote
+    itself: each is found, text-equal, in its falcon_tpu source."""
+    import inspect
+    from falcon_tpu.cns import device as jdev
+    from falcon_tpu.overlap import engine as jeng
+    from falcon_tpu.parallel import distributed as jdist
+    from falcon_tpu.pipeline import driver as jdrv
+    from falcon_tpu_torch.cns import device as tdev
+    from falcon_tpu_torch.overlap import engine as teng
+    from falcon_tpu_torch.parallel import distributed as tdist
+    from falcon_tpu_torch.pipeline import driver as tdrv
+
+    def same(a, b):
+        return inspect.getsource(a).replace("falcon_tpu_torch",
+                                            "falcon_tpu") == \
+            inspect.getsource(b)
+
+    for name in ("seq_to_codes", "seq_to_ascii", "gate_group_ranged",
+                 "_clamp_range", "_range_ok"):
+        assert same(getattr(tdev, name), getattr(jdev, name)), name
+    for name in ("dispatch_chunk", "finish_chunk", "_msa", "_host_range"):
+        assert same(getattr(tdev.DeviceCns, name),
+                    getattr(jdev.DeviceCns, name)), name
+    for name in ("OverlapParams", "AView", "BlockIndex", "chain_blocks",
+                 "_dedup_extents", "align_candidates", "extend_one",
+                 "emit_symmetric"):
+        assert same(getattr(teng, name), getattr(jeng, name)), name
+    for name in ("_engine_params", "_drop_pair_ckpts", "_make_group",
+                 "phase1", "phase2"):
+        assert same(getattr(tdrv.Pipeline, name),
+                    getattr(jdrv.Pipeline, name)), name
+    for name in ("_done", "_resumable", "setup_logging"):
+        assert same(getattr(tdrv, name), getattr(jdrv, name)), name
+    assert same(tdist.block_pair_plan, jdist.block_pair_plan)
+    for n, h in ((1, 1), (4, 2), (7, 3)):
+        got = [tdist.host_block_pairs(n, k, h) for k in range(h)]
+        assert got == [jdist.host_block_pairs(n, k, h) for k in range(h)]
+        assert sorted(sum(got, [])) == tdist.block_pair_plan(n)
+
+
+def test_native_library_builds_in_the_ports_own_dir():
+    """The port's host C++ library is built from the port's own source
+    into falcon_tpu_torch/_build/, never into falcon_tpu's cache, and gives
+    falcon_tpu's results."""
+    from falcon_tpu.ops import native as jnative
+    from falcon_tpu_torch.ops import native as tnative
+    assert tnative.available()
+    assert tnative.BUILD_DIR == os.path.join(REPO, "falcon_tpu_torch",
+                                             "_build")
+    so = os.path.join(tnative.BUILD_DIR, "libfalcon_native.so")
+    assert os.path.exists(so)
+    assert os.path.abspath(tnative._SRC) == os.path.join(
+        REPO, "falcon_tpu_torch", "native", "falcon_native.cpp")
+    assert tnative.get_lib()._name == so
+    genome = sim.random_genome(3000, seed=3)
+    reads = [s for _, s in sim.simulate_reads(genome, coverage=6,
+                                              mean_len=1500, min_len=800,
+                                              error=0.1, seed=4)][:2]
+    a = tnative.align(reads[0], reads[0][5:] + "ACGT", 200, True)
+    assert a.aln_str_size > 0
+    if jnative.available():
+        assert jnative.get_lib()._name != so
+        b = jnative.align(reads[0], reads[0][5:] + "ACGT", 200, True)
+        assert (a.dist, a.aln_q_e, a.aln_t_e, a.q_aln_str) == \
+            (b.dist, b.aln_q_e, b.aln_t_e, b.q_aln_str)
 
 
 def test_resolve_device(monkeypatch):

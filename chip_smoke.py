@@ -10,10 +10,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
             versions, whether the host C++ library builds
   build     nvcc builds the port's kernels from csrc/ (build time, ptxas
             register and shared-memory counts)
+  latency   a pointer chase (csrc/latency.cu) measures the latency of one
+            dependent read from shared memory and from device memory, in
+            SM clocks: what the chain floors below rest on
   k1        K1 (banded extension) against its plain twin on the card,
             bit-equal on (i, j, d) at W = 256 and W = 64, L = 1024, 4096,
-            16384; then bit-equal and timed at the (B, L) the pipeline's
-            extender launches at L = 1024 and 8192
+            16384, at W = 32, 128 and 512 (the warp kernel's other bands)
+            and at W = 96 (the block kernel); then bit-equal and timed at
+            the (B, L) the pipeline's extender launches at L = 1024 and
+            8192
   k2        K2 (forward DP, two-bit trace) against band_sweep on the cells
             each row swept, K3 (walk) against walk_back on the twin's
             trace, and the pair against align_tb_batch, all bit-equal, at
@@ -30,17 +35,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   dp_kernels  K4 (tags), K5 (consensus scan) and K6 (backtrack walk)
             against their plain twins on the card, bit-equal, at the
             smallest and largest T bucket the DP pipeline ran, with G from
-            DeviceCns._dp_group_cap; then each timed
+            DeviceCns._dp_group_cap; then each timed (K5 with its clocks
+            per column and the mean highest level in use); and K5 on
+            adversarial counts (adversarial_counts) at D = 3, 14 and 16
 
 Every timing line carries the kernel's bound: the larger of its bytes
 (each input once, each output once) over 3.35 TB/s and its int32 operations
-(this run's cells times the operations per cell counted from the source)
-over 64 lanes x 132 SMs x the SM clock nvidia-smi reported during the
-phase.  A bound above the kernel's time fails the run.  The timing line of
-a kernel that is one dependent chain (K3, K5, K6) also carries the chain's
-floor, steps times the latency of the memory its design reads per step;
-the two latencies are assumed constants of this script, not measurements,
-so those floors are marked `assumed` and stay out of the `kernels` line.
+(this run's cells times the least operations the recurrence needs per cell,
+whatever the implementation spends) over 64 lanes x 132 SMs x the SM clock
+nvidia-smi reported during the phase.  A bound above the kernel's time
+fails the run.  The timing line of a kernel that is one dependent chain
+(K3, K5, K6) also carries the chain's floor, steps times the latency of the
+memory its design reads per step as the `latency` phase measured it; the
+floors stay out of the `kernels` line.
 
 With FTPU_PROFILE=<absolute dir> both pipelines run under torch.profiler
 and a `_device_time` line lists each run's device time by kernel.
@@ -88,14 +95,13 @@ def cuda_ms(fn, reps=1, warm=True):
 
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 INT32_LANES = 64 * 132          # int32 lanes per clock on the card
-# int32 operations per DP cell: K1 counted from csrc/band_dp.cuh (adds,
-# mins, compares, selects), K2 from cuobjdump -sass of an interior step of
-# csrc/tb_sweep.cuh (119 instructions for 8 cells)
-OPS_PER_CELL = {"K1": 15, "K2": 15}
+# The least int32 operations the recurrence needs per DP cell, counted
+# from D[i, j] = min(min(up, left) + 1, diag + (q != t)) and not from any
+# kernel: the compare, the add of its result, two mins and the +1 for K1;
+# those and the move's two bits (diag or not, up or left) for K2.
+OPS_PER_CELL = {"K1": 5, "K2": 7}
 OPS_PER_WALK_STEP = 30          # K3, csrc/align_tb.cu, per walked step
-# assumed latencies of a dependent read, in SM clocks, for the chain floors
-SMEM_LATENCY_CLK = 30           # shared memory
-GLOBAL_LATENCY_CLK = 600        # device memory (a miss to HBM)
+CHASE_STEPS = 4096              # dependent loads per latency measurement
 
 
 class ClockSampler:
@@ -141,8 +147,8 @@ def bound_ms(nbytes, ops, clock_mhz):
 
 
 def chain_ms(steps, latency_clk, clock_mhz):
-    """Floor of one dependent chain under an assumed latency: steps x
-    latency, in milliseconds."""
+    """Floor of one dependent chain: steps x the measured latency of one
+    dependent read (phase_latency), in milliseconds."""
     return steps * latency_clk / (clock_mhz * 1e6) * 1e3
 
 
@@ -243,6 +249,44 @@ def phase_build():
         kernels_with_spills=len(spills))
 
 
+def phase_latency(card):
+    """Clocks per dependent read by pointer chase, the least of three
+    runs: in shared memory over a random cycle of 8192 words; in device
+    memory at a stride of ~25 KB through a 512 MB buffer, each run from a
+    start of its own, so that every load is a new line that L2 does not
+    hold.  Returns {"shared": clocks, "global": clocks}."""
+    from falcon_tpu_torch.ops import _build
+    dev = torch.device("cuda")
+    lib = _build.lib()
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    clocks = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def chase(nxt, n_shared):
+        best = None
+        for rep in range(3):
+            _build.check(lib.ftt_chase(
+                nxt.data_ptr(), n_shared, 64 * rep, CHASE_STEPS,
+                out.data_ptr(), clocks.data_ptr(), _build.stream_of(nxt)),
+                "chase")
+            torch.cuda.synchronize()
+            c = int(clocks) / CHASE_STEPS
+            best = c if best is None else min(best, c)
+        return best
+    n = 8192
+    order = torch.randperm(n, device=dev)
+    cyc = torch.empty(n, dtype=torch.int32, device=dev)
+    cyc[order] = order.roll(-1).to(torch.int32)
+    shared = chase(cyc, n)
+    n = 1 << 27
+    far = ((torch.arange(n, device=dev) + 6421) % n).to(torch.int32)
+    glob = chase(far, 0)
+    del far
+    torch.cuda.empty_cache()
+    log(phase="latency", card=card, dependent_loads=CHASE_STEPS,
+        shared_clk_per_load=shared, global_clk_per_load=glob)
+    return {"shared": shared, "global": glob}
+
+
 def k1_check(got, ref, W, L, B, **kv):
     """Bit-equality of K1 and its twin; logs and raises on a difference."""
     e = max_err(got, ref)
@@ -258,20 +302,23 @@ def k1_check(got, ref, W, L, B, **kv):
 
 
 def phase_k1(rng, card, clock):
-    """Parity at small batches of both widths, then parity, times and
-    bounds at the (B, L) the pipeline's extender launches (its
-    _batch_for).  Returns (max abs err, {L: timing dict})."""
-    from falcon_tpu_torch.ops.align_cuda import extend_batch_cuda
+    """Parity at small batches of every band of the warp kernel and one
+    of the block kernel, then parity, times and bounds at the (B, L) the
+    pipeline's extender launches (its _batch_for).  Returns (max abs err,
+    {L: timing dict})."""
+    from falcon_tpu_torch.ops.align_cuda import extend_batch_cuda, kernel_for
     from falcon_tpu_torch.ops.align_device import band_cells, extend_batch
     from falcon_tpu_torch.overlap.engine import make_device_aligner
     err = 0
     for W, L, B in ((256, 1024, 96), (64, 1024, 64), (256, 4096, 64),
-                    (64, 4096, 32), (256, 16384, 32)):
+                    (64, 4096, 32), (256, 16384, 32), (32, 1024, 32),
+                    (128, 1024, 32), (512, 1024, 32), (512, 4096, 32),
+                    (96, 1024, 32)):
         args = make_pairs(rng, B, L, W)
         got = extend_batch_cuda(*args, W=W)
         ref = extend_batch(*args, W=W)
         torch.cuda.synchronize()
-        err = max(err, k1_check(got, ref, W, L, B))
+        err = max(err, k1_check(got, ref, W, L, B, kernel=kernel_for(W)))
     ext = make_device_aligner(W=W_MAIN, device="cuda").ext
     times = {}
     for L in (1024, 8192):
@@ -282,7 +329,8 @@ def phase_k1(rng, card, clock):
                           reps=3)
         mhz = clock.peak()
         ref, plain = cuda_ms(lambda: extend_batch(*args, W=W_MAIN))
-        err = max(err, k1_check(got, ref, W_MAIN, L, B, main_path=True))
+        err = max(err, k1_check(got, ref, W_MAIN, L, B, main_path=True,
+                                kernel=kernel_for(W_MAIN)))
         ql, tl = args[1].cpu().numpy(), args[3].cpu().numpy()
         cells = int(band_cells(ql, tl, W_MAIN).sum())
         bnd, by = bound_ms(2 * B * L + 8 * B + 12 * B,
@@ -322,7 +370,7 @@ def swept_cells_equal(got, planes, ql, tl, W):
     return True, n
 
 
-def phase_k2(rng, card, clock):
+def phase_k2(rng, card, clock, lat):
     """K2, K3 and the pair against their plain versions, bit-equal, then
     K2 and K3 timed apart (mean of 3 after a warm-up; every launch writes
     or reads a trace larger than L2) with bounds.  Returns (K2 err, K3
@@ -397,7 +445,7 @@ def phase_k2(rng, card, clock):
                            2 * L * B * 5 // 4, walked * OPS_PER_WALK_STEP,
                            mhz)
         longest = int((ends[0] + ends[1]).max())   # anti-diagonals, one row
-        c3 = chain_ms(longest, SMEM_LATENCY_CLK, mhz)
+        c3 = chain_ms(longest, lat["shared"], mhz)
         times[(B, L)] = dict(
             K2=dict(ms=fwd, plain_ms=p_fwd, bound_ms=b2, bound_by=by2),
             K3=dict(ms=bwd, plain_ms=p_bwd, bound_ms=b3, bound_by=by3))
@@ -409,7 +457,7 @@ def phase_k2(rng, card, clock):
             trace_alloc_bytes=B * k.trace_row_bytes(L, W_MAIN),
             k3_ms=bwd, k3_plain_ms=p_bwd, k3_bound_ms=b3, k3_bound_by=by3,
             k3_share_of_bound=share_of_bound("K3 %dx%d" % (B, L), bwd, b3),
-            k3_chain_floor_assumed_ms=c3, walked_steps=walked,
+            k3_chain_floor_ms=c3, walked_steps=walked,
             longest_walk_diagonals=longest)
         del args, q, ql, t, tl, ends, mv
         torch.cuda.empty_cache()
@@ -517,6 +565,29 @@ def dp_batch(rng, G, T, L, D, max_diff):
                  torch.from_numpy(s2).to(dev), max_diff, T, D)
 
 
+def adversarial_counts(rng, G, T, D):
+    """A count buffer (numpy uint16, ops.cns_dp's flat layout) made to
+    break a consensus scan that skips levels or orders ties wrongly.  Counts
+    are 0 (half of them) or 1-3, so equal scores abound.  Columns cycle
+    through: only delta 0; every level up to D - 1 (the level in use jumps
+    from 0 to D - 1 between neighbours); nothing at all; a random top
+    level; one isolated level above an empty delta 0."""
+    from falcon_tpu_torch.ops import cns_dp
+    l0 = rng.integers(1, 4, (G, T, 5 * cns_dp.NPC0)) * \
+        (rng.random((G, T, 5 * cns_dp.NPC0)) < 0.5)
+    ld = rng.integers(1, 4, (G, T, D - 1, 5 * cns_dp.NPCD)) * \
+        (rng.random((G, T, D - 1, 5 * cns_dp.NPCD)) < 0.5)
+    kind = (np.arange(T)[None, :] + rng.integers(0, 5, (G, 1))) % 5
+    level = np.arange(1, D)[None, None, :]
+    pick = rng.integers(1, D, (G, T))
+    top = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                    [0, D - 1, 0, pick], pick)[:, :, None]
+    keep = np.where((kind == 4)[:, :, None], level == top, level <= top)
+    ld *= keep[:, :, :, None]
+    l0 *= ((kind != 2) & (kind != 4))[:, :, None]
+    return np.concatenate([l0.ravel(), ld.ravel(), [0]]).astype(np.uint16)
+
+
 def ladder_walk(scan, g, T, D):
     """Point group g of a scan's outputs at a pred ladder that visits every
     delta level of every column (stay codes at d >= 1, jumps to d = D - 1
@@ -537,7 +608,48 @@ def dp_equal(got, ref):
     return err, all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
-def phase_dp_kernels(rng, card, clock, buckets, min_cov=2, min_idt=0.70):
+def mean_dmax(msa, G, T, D):
+    """Mean over a count buffer's G * T columns of the highest delta level
+    that holds any count (0: delta 0 alone): the levels K5's chain runs."""
+    from falcon_tpu_torch.ops import cns_dp
+    ld = msa[cns_dp.l0_size(G, T):-1].view(torch.int16).view(
+        G, T, D - 1, 5 * cns_dp.NPCD)
+    total = 0
+    for g0 in range(0, G, 32):           # a slice of groups at a time
+        used = (ld[g0:g0 + 32] != 0).any(3)
+        level = torch.arange(1, D, device=msa.device) * used
+        total += int(level.amax(2).sum())
+    return total / (G * T)
+
+
+def phase_k5_adversarial(rng):
+    """K5 against its twin on adversarial_counts at D = 3, 14 and 16, all
+    six outputs bit-equal.  Returns the max abs err."""
+    from falcon_tpu_torch.ops import cns_dp
+    from falcon_tpu_torch.ops import cns_dp_cuda as k
+    worst = 0.0
+    for D, G, T in ((3, 7, 193), (14, 9, 257), (16, 6, 160)):
+        host = adversarial_counts(rng, G, T, D)
+        msa = torch.from_numpy(host.view(np.int16)).cuda().view(torch.uint16)
+        got = k.consensus_scan_cuda(msa, G, T, D)
+        ref = cns_dp.consensus_scan(msa, G, T, D)
+        torch.cuda.synchronize()
+        err, eq = dp_equal(got, ref)
+        log(phase="k5_adversarial", D=D, G=G, T=T, max_abs_err=err,
+            bit_equal=eq, mean_dmax=mean_dmax(msa, G, T, D),
+            empty_columns=int((got[1] == 0).sum()))
+        if not eq:
+            names = ("bp", "cov", "gb_s", "gb_t", "gb_d", "gb_b")
+            raise SystemExit("K5 differs from its twin on adversarial counts"
+                             " at D=%d: %s" % (D, [
+                                 n for n, a, b in zip(names, got, ref)
+                                 if not torch.equal(a, b)]))
+        worst = max(worst, err)
+    return worst
+
+
+def phase_dp_kernels(rng, card, clock, lat, buckets, min_cov=2,
+                     min_idt=0.70):
     """K4, K5 and K6 bit-equal to their twins at each T bucket, G from the
     port's _dp_group_cap, then timed (kernels by cuda_ms, twins once).
     K6 runs on the scan's outputs with group G - 2 moved onto a 2T-code
@@ -548,7 +660,7 @@ def phase_dp_kernels(rng, card, clock, buckets, min_cov=2, min_idt=0.70):
     cns = DeviceCns(device="cuda", use_dp=True)
     D = cns.dp_delta_cap
     max_diff = np.float32(1.0 - min_idt)
-    errs = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
+    errs = {"K4": 0.0, "K5": phase_k5_adversarial(rng), "K6": 0.0}
     times = {}
     for T in buckets:
         G = cns._dp_group_cap(T)
@@ -593,13 +705,16 @@ def phase_dp_kernels(rng, card, clock, buckets, min_cov=2, min_idt=0.70):
                                          cns_dp.NPCD) + D * 5 + 4), 0, mhz)
         steps6 = [x + T for x in n]          # emissions plus column moves
         b6, by6 = bound_ms(sum(steps6) + G * 2 * T + 4 * G, 0, mhz)
-        c5 = chain_ms(T, SMEM_LATENCY_CLK, mhz)
-        c6 = chain_ms(max(steps6), GLOBAL_LATENCY_CLK, mhz)
+        c5 = chain_ms(T, lat["shared"], mhz)
+        c6 = chain_ms(max(steps6), lat["global"], mhz)
         log(phase="dp_kernels", card=card, T=T, G=G, D=D, L=L,
             rows=rows, tags=tags, sm_clock_mhz=mhz,
             k4_bound_ms=b4, k4_bound_by=by4, k5_bound_ms=b5, k5_bound_by=by5,
-            k5_chain_floor_assumed_ms=c5, k6_bound_ms=b6, k6_bound_by=by6,
-            k6_chain_floor_assumed_ms=c6, k6_longest_walk_steps=max(steps6),
+            k5_chain_floor_ms=c5, k5_steps=T,
+            k5_clk_per_step=t5 * mhz * 1e3 / T,
+            k5_mean_dmax=mean_dmax(got, G, T, D), k6_bound_ms=b6,
+            k6_bound_by=by6, k6_chain_floor_ms=c6,
+            k6_longest_walk_steps=max(steps6),
             k4_share_of_bound=share_of_bound("K4 T=%d" % T, t4, b4),
             k5_share_of_bound=share_of_bound("K5 T=%d" % T, t5, b5),
             k6_share_of_bound=share_of_bound("K6 T=%d" % T, t6, b6),
@@ -628,8 +743,9 @@ def phase_dp_kernels(rng, card, clock, buckets, min_cov=2, min_idt=0.70):
 def run_phases(args, rng, card, clock):
     """Every phase after env, in order; returns the kernels list."""
     phase_build()
+    lat = phase_latency(card)
     e1, t1 = phase_k1(rng, card, clock)
-    e2, e3, t2 = phase_k2(rng, card, clock)
+    e2, e3, t2 = phase_k2(rng, card, clock, lat)
     with tempfile.TemporaryDirectory() as d:
         launches, host_t = phase_pipeline(args, d, dp=False)
     with tempfile.TemporaryDirectory() as d:
@@ -642,7 +758,7 @@ def run_phases(args, rng, card, clock):
     buckets = sorted({buckets[0], buckets[-1]})
     log(phase="dp_buckets", hit=dp_t["phase0_cns_dp_batches"],
         checked=buckets)
-    e_dp, t_dp = phase_dp_kernels(rng, card, clock, buckets)
+    e_dp, t_dp = phase_dp_kernels(rng, card, clock, lat, buckets)
     t_tb = t2[max(t2, key=lambda bl: (bl[1], bl[0]))]   # largest L bucket
     t_top = t_dp[buckets[-1]]
     rows = [("K1 banded extension", "extend.cu",

@@ -54,7 +54,7 @@ ftt_tb_fwd_kernel(const int8_t* __restrict__ q,
     const int warp = threadIdx.x >> 5;
     const int b = blockIdx.x * FTT_TB_FWD_ROWS + warp;
     if (b >= B) return;                  // whole warps leave; no block barrier
-    ftt_tb_sweep<C>(q + (size_t)b * L, t + (size_t)b * L, qlen[b], tlen[b],
+    ftt_tb_sweep<C, true>(q + (size_t)b * L, t + (size_t)b * L, qlen[b], tlen[b],
                     b, B, L, end_bonus, ends,
                     trace + (size_t)b * 4 * L * C, wsmem[warp]);
 }

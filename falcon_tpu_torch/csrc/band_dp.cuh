@@ -1,12 +1,17 @@
-// Banded anti-diagonal edit DP of K1 (extend.cu).  K2 sweeps the same DP
-// with a warp-resident band (tb_sweep.cuh).
+// Banded anti-diagonal edit DP, a block per row: K1's kernel for the bands
+// the warp-resident sweep (tb_sweep.cuh) is not instantiated for.
+// extend.cu runs the warp sweep at W = 32, 64, 128, 256 and 512 and this
+// one at every other multiple of 32 up to 1024.
 //
-// One thread block per batch row, one thread per band lane.  Anti-diagonal
-// s = i + j; lane l holds cell i = o(s) + l with o(s) = max(0, s/2 - W/2),
-// j = s - i.  Three shared-memory rows hold anti-diagonals s-2, s-1 and s
-// (each W lanes plus two INF lanes of padding at either end), so one
-// __syncthreads() per step orders every read of step s before any write of
-// step s+1.  q/t characters are read straight from global int8.
+// One thread block per batch row, one thread per band lane, so any W fits.
+// Anti-diagonal s = i + j; lane l holds cell i = o(s) + l with
+// o(s) = max(0, s/2 - W/2), j = s - i.  Three shared-memory rows hold
+// anti-diagonals s-2, s-1 and s (each W lanes plus two INF lanes of padding
+// at either end), so one __syncthreads() per step orders every read of step
+// s before any write of step s+1.  q/t characters are read straight from
+// global int8.  What bounds it is that barrier and the shared-memory round
+// trip of every operand, not the arithmetic: it runs at about a quarter of
+// the card's int32 rate, which the warp sweep exists to lift.
 //
 // Each row sweeps s = 1 .. min(qlen + tlen, 2L): no boundary cell
 // (i == qlen or j == tlen) lies beyond qlen + tlen, so the row stops at its

@@ -27,13 +27,32 @@
 //   the four rows of a block share those sectors through L1/L2.  Integer
 //   atomics make the counts independent of order, hence bit-equal run to
 //   run.
-// - K5 is latency-bound: T dependent steps, each a chain of D - 1
-//   dependent levels of 5 x 6 max/argmax, per group.  One warp per group;
-//   the step's 470 counts are loaded into registers one step ahead and
-//   staged through shared memory, so the loads overlap the previous
-//   step's chain; lanes 0-4 each own one base through the chain.  With
-//   G = 100-400 groups a batch, most SMs stay idle: packing more groups
-//   (or several batches) onto the card is later work.
+// - K5 is latency-bound: T dependent columns per group, each a chain of
+//   up to D - 1 dependent levels of 5 x 6 max/argmax behind a delta-0
+//   level of 5 x 16.  A launch has fewer groups than the card has warp
+//   schedulers, and a warp that runs alone starts an instruction every
+//   three or four clocks, so what shortens a launch is fewer instructions
+//   on the warp that carries the chain.  One block per group: a chain warp
+//   and three front warps, each on a scheduler of its own (a fourth front
+//   would share the chain's), handing columns over through six slots of
+//   shared memory guarded by named barriers.  (1) A front takes every
+//   third column: it turns the column's counts (loaded two of its columns
+//   ahead into registers) into float addends, a count of 0 as -inf so
+//   that "no link" needs no branch, and finds with one warp reduction
+//   each the coverage and dmax, the highest level that holds any count.
+//   (2) The chain keeps S_cur[d][b] in lane b's register: a level is five
+//   shuffles, six adds, a max tree, and the argmax as the first candidate
+//   equal to the max, with no branch or shared-memory round trip; the best
+//   delta >= 2 predecessor and the lane's best cell so far are running
+//   first-maxima updated as each level finishes.  (3) Levels above dmax
+//   are not run: with no count there every score is -1.0 and every code
+//   255 whatever the level below held; the -1.0 enters the delta >= 2
+//   maximum at the first such level, and never the group's best, which
+//   only a score above -1.0 replaces.  (4) The chain touches no device
+//   memory but the group's best cell after the last column: the front that
+//   owns a slot stores the finished column's codes as one pass over
+//   bp[t, g, :] when it takes the slot back, and the coverage as it
+//   computes it.
 // - K6 is latency-bound: each step reads the pred code that the previous
 //   step pointed at.  One thread per group; the walk needs no step cap,
 //   since every step either emits, moves down a delta level (at most D a
@@ -51,10 +70,17 @@ constexpr int NPC0 = 16;
 constexpr int NPCD = 6;
 constexpr int DMAX = 16;   // delta fits the 4-bit field of the latch
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int SCAN_WARPS = 4;
-// 32-bit words of one step's counts: 5*NPC0/2 + (DMAX-1)*5*NPCD/2 = 265
-constexpr int SCAN_WORDS = 5 * NPC0 / 2 + (DMAX - 1) * 5 * NPCD / 2;
+constexpr int SCAN_FRONTS = 3;                   // K5: front warps a group
+constexpr int SCAN_SLOTS = 6;                    // hand-over slots, a multiple
+                                                 // of the fronts; 2 * slots
+                                                 // named barriers, 15 at most
+constexpr int SCAN_THREADS = 32 * (1 + SCAN_FRONTS);
+constexpr int SCAN_AHEAD = 2;                    // columns a front loads ahead
+constexpr int SCAN_L0W = 5 * NPC0 / 2;           // 32-bit words of a column's
+constexpr int SCAN_LDW = 5 * NPCD / 2;           // L0 row, of one Ld level
+constexpr int SCAN_WORDS = SCAN_L0W + (DMAX - 1) * SCAN_LDW;   // 265
 constexpr int SCAN_PER_LANE = (SCAN_WORDS + 31) / 32;
+constexpr int SCAN_ADD = SCAN_PER_LANE * 64;     // addends: two a word
 }  // namespace
 
 // ---------------------------------------------------------------- K4 ----
@@ -143,151 +169,294 @@ __global__ void ftt_tags_kernel(uint16_t* __restrict__ msa,
 }
 
 // ---------------------------------------------------------------- K5 ----
-struct ScanWarp {
-    unsigned int cw[SCAN_PER_LANE * 32];   // this step's counts
-    float S[2][DMAX * 5];                  // S_prev / S_cur, [d][b]
-    float s2p[5];
-    int a2[5];
+// One column's hand-over between a front warp and the chain warp: the
+// column's addends, one float per count in the counts' own order (L0
+// [b][16], then Ld [d-1][b][6]), its coverage and highest level in use, and
+// the pred codes on their way back.
+struct __align__(16) ScanSlot {
+    float add[SCAN_ADD];
+    int cov, dmax, pad[2];
+    uint8_t code[DMAX * 5 + 16];
 };
 
-// Word w of step t's counts: L0 row (w < 40), then Ld row.
-__device__ __forceinline__ void ftt_scan_load(const unsigned int* words,
-                                              long long w0, long long wd,
-                                              int nw, int lane,
-                                              unsigned int* pre) {
+// Named barriers of a block (0 is __syncthreads'): column t's slot is
+// t % SCAN_SLOTS; `full` is passed when its addends are written, `done`
+// when its codes are.  Each pairs the chain warp with the one front warp
+// that owns the slot: 64 threads.
+__device__ __forceinline__ int ftt_scan_full(int slot) { return 1 + slot; }
+__device__ __forceinline__ int ftt_scan_done(int slot) {
+    return 1 + SCAN_SLOTS + slot;
+}
+__device__ __forceinline__ void ftt_bar_wait(int id) {
+    asm volatile("bar.sync %0, 64;" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void ftt_bar_signal(int id) {
+    __threadfence_block();               // this warp's writes, then the count
+    asm volatile("bar.arrive %0, 64;" :: "r"(id) : "memory");
+}
+
+// Word w of step t's counts: L0 row (w < 40), then Ld row; 0 past the end.
+__device__ __forceinline__ void ftt_scan_load(
+    const unsigned int* __restrict__ words, long long w0, long long wd,
+    int nw, int lane, unsigned int (&pre)[SCAN_PER_LANE]) {
 #pragma unroll
     for (int j = 0; j < SCAN_PER_LANE; ++j) {
         const int w = lane + 32 * j;
-        const int n0 = 5 * NPC0 / 2;
-        if (w < nw) pre[j] = w < n0 ? words[w0 + w] : words[wd + w - n0];
+        pre[j] = w < SCAN_L0W ? __ldcs(words + w0 + w)
+               : (w < nw ? __ldcs(words + wd + (w - SCAN_L0W)) : 0u);
     }
 }
 
-__global__ void ftt_cns_scan_kernel(const uint16_t* __restrict__ msa, int G,
-                                    int T, int D, uint8_t* __restrict__ bp,
-                                    int* __restrict__ cov,
-                                    float* __restrict__ gb_s,
-                                    int* __restrict__ gb_t,
-                                    int* __restrict__ gb_d,
-                                    int* __restrict__ gb_b) {
-    __shared__ ScanWarp sw[SCAN_WARPS];
-    const int lane = threadIdx.x & 31;
-    const int g = blockIdx.x * SCAN_WARPS + (threadIdx.x >> 5);
-    if (g >= G) return;
-    ScanWarp& w = sw[threadIdx.x >> 5];
-    const unsigned int* words = reinterpret_cast<const unsigned int*>(msa);
-    const int nld = (D - 1) * 5 * NPCD;                   // Ld counts a step
-    const int nw = (5 * NPC0 + nld) / 2;
-    const long long l0w = (long long)g * T * (5 * NPC0 / 2);
-    const long long ldw = (long long)G * T * (5 * NPC0 / 2) +
-                          (long long)g * T * (nld / 2);
-    const uint16_t* c0 = reinterpret_cast<const uint16_t*>(w.cw);
-    const uint16_t* cd = c0 + 5 * NPC0;
-    for (int i = lane; i < DMAX * 5; i += 32) w.S[0][i] = -1.0f;
-    int cur = 1;
-    float gbs = -1.0f;
-    int gbt = 0, gbd = 0, gbb = 0;
-    unsigned int pre[SCAN_PER_LANE];
-    ftt_scan_load(words, l0w, ldw, nw, lane, pre);
+// (float)n for a count n < 2^16 without the conversion unit: n in the
+// mantissa of 2^23, minus 2^23 (exact).
+__device__ __forceinline__ float ftt_count_float(unsigned int n) {
+    return __int_as_float(0x4b000000u | n) - 8388608.0f;
+}
+
+// The first maximum of two candidates in index order: (b, ib) replaces
+// (a, ia), ia < ib, only if it is strictly greater.
+__device__ __forceinline__ void ftt_first_max(float& a, int& ia, float b,
+                                              int ib) {
+    const bool take = b > a;
+    a = take ? b : a;
+    ia = take ? ib : ia;
+}
+
+// The codes of a finished column leave as one pass of the warp over
+// bp[t, g, :]; the levels the chain did not run hold 255: no link,
+// whatever the level below held.
+__device__ __forceinline__ void ftt_scan_store_codes(
+    const ScanSlot& S, int D, int lane, uint8_t* __restrict__ bpt) {
+    const int run = (S.dmax + 1) * 5;
+#pragma unroll
+    for (int j = 0; j < (DMAX * 5 + 31) / 32; ++j) {
+        const int i = lane + 32 * j;
+        if (i < D * 5) bpt[i] = i < run ? S.code[i] : (uint8_t)255;
+    }
+}
+
+// A front warp: columns p, p + SCAN_FRONTS, ... of group g.  For each it
+// takes back the slot (storing the codes of the column that held it),
+// writes the column's addends, coverage and dmax, and hands the slot over.
+__device__ void ftt_scan_front(ScanSlot* slots, int p, int lane,
+                               const unsigned int* __restrict__ words,
+                               int g, int G, int T, int D,
+                               uint8_t* __restrict__ bp,
+                               int* __restrict__ cov) {
+    const float NINF = __int_as_float(0xff800000);
+    const int ldw_step = (D - 1) * SCAN_LDW;              // Ld words a column
+    const int nw = SCAN_L0W + ldw_step;
+    const long long l0w = (long long)g * T * SCAN_L0W;
+    const long long ldw = (long long)G * T * SCAN_L0W +
+                          (long long)g * T * ldw_step;
+    const size_t bp_step = (size_t)G * (D * 5);
+    uint8_t* bpg = bp + (size_t)g * (D * 5);
+    int* covrow = cov + (size_t)g * T;
+    unsigned int pre[SCAN_AHEAD][SCAN_PER_LANE];
+#pragma unroll
+    for (int u = 0; u < SCAN_AHEAD; ++u) {
+        const int t = p + u * SCAN_FRONTS;
+        if (t < T)
+            ftt_scan_load(words, l0w + (long long)t * SCAN_L0W,
+                          ldw + (long long)t * ldw_step, nw, lane, pre[u]);
+    }
+    for (int t0 = p; t0 < T; t0 += SCAN_AHEAD * SCAN_FRONTS) {
+#pragma unroll
+        for (int u = 0; u < SCAN_AHEAD; ++u) {
+            const int t = t0 + u * SCAN_FRONTS;
+            if (t >= T) break;
+            const int slot = t % SCAN_SLOTS;
+            ScanSlot& S = slots[slot];
+            if (t >= SCAN_SLOTS) {
+                ftt_bar_wait(ftt_scan_done(slot));
+                ftt_scan_store_codes(S, D, lane,
+                                     bpg + (size_t)(t - SCAN_SLOTS) * bp_step);
+                __syncwarp();            // the old dmax is read by all lanes
+            }
+            int c = 0, lvl = 0;
+#pragma unroll
+            for (int j = 0; j < SCAN_PER_LANE; ++j) {
+                const int w = lane + 32 * j;
+                const unsigned int x = pre[u][j];
+                const unsigned int lo = x & 0xffffu, hi = x >> 16;
+                float2 v;
+                v.x = lo ? ftt_count_float(lo) : NINF;   // 0: no link
+                v.y = hi ? ftt_count_float(hi) : NINF;
+                *reinterpret_cast<float2*>(&S.add[2 * w]) = v;
+                if (w < SCAN_L0W) c += (int)(lo + hi);
+                else if (x) lvl = (w - SCAN_L0W) / SCAN_LDW + 1;
+            }
+            const int tn = t + SCAN_AHEAD * SCAN_FRONTS;
+            if (tn < T)
+                ftt_scan_load(words, l0w + (long long)tn * SCAN_L0W,
+                              ldw + (long long)tn * ldw_step, nw, lane,
+                              pre[u]);
+            c = __reduce_add_sync(FULL, c);
+            lvl = __reduce_max_sync(FULL, lvl);     // highest level in use
+            if (lane == 0) {
+                S.cov = c;
+                S.dmax = lvl;
+                covrow[t] = c;
+            }
+            ftt_bar_signal(ftt_scan_full(slot));
+        }
+    }
+    // the columns whose slots no later column took back
+    int t = T > SCAN_SLOTS ? T - SCAN_SLOTS : 0;
+    t += ((p - t) % SCAN_FRONTS + SCAN_FRONTS) % SCAN_FRONTS;
+    for (; t < T; t += SCAN_FRONTS) {
+        const int slot = t % SCAN_SLOTS;
+        ftt_bar_wait(ftt_scan_done(slot));
+        ftt_scan_store_codes(slots[slot], D, lane, bpg + (size_t)t * bp_step);
+    }
+}
+
+// The chain warp: every column of group g in order, from the slots.  Lane
+// b < 5 owns base b (lanes 5-31 mirror lane 4); its state is the scores of
+// the column before, S_prev[0][b], S_prev[1][b] and the first maximum of
+// S_prev[2 ..][b] with its level, and the lane's best cell so far.
+__device__ void ftt_scan_chain(ScanSlot* slots, int lane, int g, int T,
+                               int D, float* __restrict__ gb_s,
+                               int* __restrict__ gb_t,
+                               int* __restrict__ gb_d,
+                               int* __restrict__ gb_b) {
+    const float NINF = __int_as_float(0xff800000);
+    const int bl = lane < 5 ? lane : 4;
+    float s0 = -1.0f, s1 = -1.0f, s2p = -1.0f, gbs = -1.0f;
+    int a2 = 2, gbt = 0, gbd = 0;
     for (int t = 0; t < T; ++t) {
+        const int slot = t % SCAN_SLOTS;
+        ScanSlot& S = slots[slot];
+        ftt_bar_wait(ftt_scan_full(slot));
+        const int dmax = S.dmax;
+        const float half = __fmul_rn(0.5f, (float)S.cov);
+
+        // ---- delta 0: 16 pred classes, their scores by shuffle
+        float cand[NPC0];
 #pragma unroll
-        for (int j = 0; j < SCAN_PER_LANE; ++j)
-            if (lane + 32 * j < nw) w.cw[lane + 32 * j] = pre[j];
-        __syncwarp();
-        if (t + 1 < T)
-            ftt_scan_load(words, l0w + (long long)(t + 1) * (5 * NPC0 / 2),
-                          ldw + (long long)(t + 1) * (nld / 2), nw, lane,
-                          pre);
-        // coverage: the step's 80 delta-0 counts
-        int c = 0;
-        for (int i = lane; i < 5 * NPC0 / 2; i += 32)
-            c += (w.cw[i] & 0xffff) + (w.cw[i] >> 16);
-        for (int o = 16; o; o >>= 1) c += __shfl_xor_sync(FULL, c, o);
-        const float half = __fmul_rn(0.5f, (float)c);
-        const float* Sp = w.S[cur ^ 1];
-        float* Sc = w.S[cur];
-        uint8_t* bpt = bp + ((size_t)t * G + g) * (D * 5);
-        const int b = lane;
-        if (b < 5) {   // best delta >= 2 predecessor of base b
-            float best = Sp[2 * 5 + b];
-            int a = 2;
-            for (int d = 3; d < D; ++d) {
-                const float v = Sp[d * 5 + b];
-                if (v > best) { best = v; a = d; }
-            }
-            w.s2p[b] = best;
-            w.a2[b] = a;
+        for (int k = 0; k < 5; ++k) {
+            cand[k] = __shfl_sync(FULL, s0, k);
+            cand[5 + k] = __shfl_sync(FULL, s1, k);
+            cand[10 + k] = __shfl_sync(FULL, s2p, k);
         }
-        __syncwarp();
-        if (b < 5) {   // delta 0: 16 pred classes
-            float best = 0.0f;
-            int arg = 0;
-            bool ex = false;
+        cand[NPC0 - 1] = 0.0f;
+        const float4* a0 = reinterpret_cast<const float4*>(S.add + bl * NPC0);
 #pragma unroll
-            for (int k = 0; k < NPC0; ++k) {
-                const int n = c0[b * NPC0 + k];
-                if (n) {
-                    const float p = k < 10 ? Sp[k]
-                                  : (k < 15 ? w.s2p[k - 10] : 0.0f);
-                    const float v = p + (float)n;
-                    if (!ex || v > best) { best = v; arg = k; }
-                    ex = true;
-                }
-            }
-            Sc[b] = ex ? best - half : -1.0f;
-            int code = 254;
-            if (ex && arg != NPC0 - 1) {
-                const int pb = arg % 5, cls = arg / 5;
-                code = (cls < 2 ? cls : w.a2[pb]) * 5 + pb;
-            }
-            bpt[b] = (uint8_t)code;
+        for (int i = 0; i < NPC0 / 4; ++i) {
+            const float4 a = a0[i];
+            cand[4 * i] += a.x;
+            cand[4 * i + 1] += a.y;
+            cand[4 * i + 2] += a.z;
+            cand[4 * i + 3] += a.w;
         }
-        for (int d = 1; d < D; ++d) {   // the within-t delta chain
-            __syncwarp();
-            if (b < 5) {
-                const uint16_t* cn = cd + (d - 1) * 5 * NPCD + b * NPCD;
-                float best = 0.0f;
-                int arg = 0;
-                bool ex = false;
+        // a tournament over neighbours in index order keeps the first
+        // maximum
+        int idx[NPC0];
 #pragma unroll
-                for (int k = 0; k < NPCD; ++k) {
-                    const int n = cn[k];
-                    if (n) {
-                        const float p = k < 5 ? Sc[(d - 1) * 5 + k] : 0.0f;
-                        const float v = p + (float)n;
-                        if (!ex || v > best) { best = v; arg = k; }
-                        ex = true;
-                    }
-                }
-                Sc[d * 5 + b] = ex ? best - half : -1.0f;
-                bpt[d * 5 + b] =
+        for (int k = 0; k < NPC0; ++k) idx[k] = k;
+#pragma unroll
+        for (int w = 1; w < NPC0; w *= 2)
+#pragma unroll
+            for (int k = 0; k < NPC0; k += 2 * w)
+                ftt_first_max(cand[k], idx[k], cand[k + w], idx[k + w]);
+        const int arg0 = idx[0];
+        const bool ex0 = cand[0] > NINF;
+        float sp = ex0 ? cand[0] - half : -1.0f;   // S_cur[d - 1][b]
+        const int cls = (arg0 >= 5) + (arg0 >= 10) + (arg0 >= 15);
+        const int pb = arg0 - 5 * cls;
+        const int a2v = __shfl_sync(FULL, a2, pb);
+        if (sp > gbs) { gbs = sp; gbt = t; gbd = 0; }
+        const float ns0 = sp;
+        float ns1 = -1.0f, r2 = NINF;
+        int r2a = 2;
+
+        // ---- the within-t chain, levels 1 .. dmax; a level's addends are
+        // loaded while the level before it runs
+        const float* ap = S.add + 5 * NPC0 + bl * NPCD;
+        float2 a01 = *reinterpret_cast<const float2*>(ap);
+        float2 a23 = *reinterpret_cast<const float2*>(ap + 2);
+        float2 a45 = *reinterpret_cast<const float2*>(ap + 4);
+        for (int d = 1; d <= dmax; ++d) {
+            ap += 5 * NPCD;
+            const float2 n01 = *reinterpret_cast<const float2*>(ap);
+            const float2 n23 = *reinterpret_cast<const float2*>(ap + 2);
+            const float2 n45 = *reinterpret_cast<const float2*>(ap + 4);
+            const float c0 = __shfl_sync(FULL, sp, 0) + a01.x;
+            const float c1 = __shfl_sync(FULL, sp, 1) + a01.y;
+            const float c2 = __shfl_sync(FULL, sp, 2) + a23.x;
+            const float c3 = __shfl_sync(FULL, sp, 3) + a23.y;
+            const float c4 = __shfl_sync(FULL, sp, 4) + a45.x;
+            const float c5 = a45.y;                   // the start class: 0 + n
+            const float m =
+                fmaxf(fmaxf(fmaxf(c0, c1), fmaxf(c2, c3)), fmaxf(c4, c5));
+            const bool ex = m > NINF;
+            sp = ex ? m - half : -1.0f;
+            const int arg = c0 == m ? 0 : c1 == m ? 1 : c2 == m ? 2
+                          : c3 == m ? 3 : c4 == m ? 4 : 5;
+            if (lane < 5)
+                S.code[d * 5 + lane] =
                     (uint8_t)(ex && arg != NPCD - 1 ? 128 + arg : 255);
-            }
+            ns1 = d == 1 ? sp : ns1;
+            if (d >= 2 && sp > r2) { r2 = sp; r2a = d; }
+            if (sp > gbs) { gbs = sp; gbt = t; gbd = d; }
+            a01 = n01;
+            a23 = n23;
+            a45 = n45;
         }
-        __syncwarp();
-        // flat [D*5] first argmax, then the strict > update of the best
-        float mv = __int_as_float(0xff800000);   // -inf
-        int mi = DMAX * 5;
-        for (int i = lane; i < D * 5; i += 32) {
-            const float v = Sc[i];
-            if (v > mv) { mv = v; mi = i; }
+        if (lane < 5)
+            S.code[lane] = (uint8_t)(
+                !ex0 || arg0 == NPC0 - 1 ? 254
+                                         : (cls < 2 ? cls : a2v) * 5 + pb);
+        ftt_bar_signal(ftt_scan_done(slot));
+        // the first level above the chain holds -1.0 and stands for every
+        // level the chain did not run
+        const int df = dmax + 1 > 2 ? dmax + 1 : 2;
+        if (df < D && -1.0f > r2) { r2 = -1.0f; r2a = df; }
+        s0 = ns0;
+        s1 = ns1;
+        s2p = r2;
+        a2 = r2a;
+    }
+    // the five lanes' bests -> the group's: highest score, earliest t, then
+    // the lowest flat index d * 5 + b
+    float bs = lane < 5 ? gbs : NINF;
+    int bt = gbt, bd = gbd, bb = lane;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+        const float os = __shfl_xor_sync(FULL, bs, o);
+        const int ot = __shfl_xor_sync(FULL, bt, o);
+        const int od = __shfl_xor_sync(FULL, bd, o);
+        const int ob = __shfl_xor_sync(FULL, bb, o);
+        if (os > bs || (os == bs && (ot < bt || (ot == bt &&
+                (od < bd || (od == bd && ob < bb)))))) {
+            bs = os; bt = ot; bd = od; bb = ob;
         }
-        for (int o = 16; o; o >>= 1) {
-            const float ov = __shfl_xor_sync(FULL, mv, o);
-            const int oi = __shfl_xor_sync(FULL, mi, o);
-            if (ov > mv || (ov == mv && oi < mi)) { mv = ov; mi = oi; }
-        }
-        if (mv > gbs) { gbs = mv; gbt = t; gbd = mi / 5; gbb = mi % 5; }
-        if (lane == 0) cov[(size_t)g * T + t] = c;
-        cur ^= 1;
-        __syncwarp();
     }
     if (lane == 0) {
-        gb_s[g] = gbs;
-        gb_t[g] = gbt;
-        gb_d[g] = gbd;
-        gb_b[g] = gbb;
+        gb_s[g] = bs;
+        gb_t[g] = bt;
+        gb_d[g] = bd;
+        gb_b[g] = bb;
     }
+}
+
+// One block per group: warp 0 runs the chain, warps 1 .. SCAN_FRONTS the
+// fronts.
+__global__ void __launch_bounds__(SCAN_THREADS)
+ftt_cns_scan_kernel(const uint16_t* __restrict__ msa, int G, int T, int D,
+                    uint8_t* __restrict__ bp, int* __restrict__ cov,
+                    float* __restrict__ gb_s, int* __restrict__ gb_t,
+                    int* __restrict__ gb_d, int* __restrict__ gb_b) {
+    __shared__ ScanSlot slots[SCAN_SLOTS];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int g = blockIdx.x;
+    if (warp == 0)
+        ftt_scan_chain(slots, lane, g, T, D, gb_s, gb_t, gb_d, gb_b);
+    else
+        ftt_scan_front(slots, warp - 1, lane,
+                       reinterpret_cast<const unsigned int*>(msa), g, G, T,
+                       D, bp, cov);
 }
 
 // ---------------------------------------------------------------- K6 ----
@@ -345,8 +514,7 @@ extern "C" int ftt_tags(void* msa, const void* mvp, const void* basep,
 extern "C" int ftt_cns_scan(const void* msa, int G, int T, int D, void* bp,
                             void* cov, void* gb_s, void* gb_t, void* gb_d,
                             void* gb_b, void* stream) {
-    ftt_cns_scan_kernel<<<(G + SCAN_WARPS - 1) / SCAN_WARPS,
-                          32 * SCAN_WARPS, 0, (cudaStream_t)stream>>>(
+    ftt_cns_scan_kernel<<<G, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint16_t*)msa, G, T, D, (uint8_t*)bp, (int*)cov,
         (float*)gb_s, (int*)gb_t, (int*)gb_d, (int*)gb_b);
     return (int)cudaGetLastError();

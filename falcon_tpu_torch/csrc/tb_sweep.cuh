@@ -1,4 +1,5 @@
-// Warp-resident banded anti-diagonal edit DP with a two-bit trace (K2).
+// Warp-resident banded anti-diagonal edit DP: with a two-bit trace (K2,
+// TRACE = true) and without one (K1, TRACE = false; extend.cu).
 //
 // The DP is band_dp.cuh's: anti-diagonal s = i + j, band cell l holds
 // i = o(s) + l with o(s) = max(0, s/2 - W/2), j = s - i, edit costs 1, the
@@ -51,6 +52,14 @@
 // i order, so within a lane ties go to the earliest s and then the lowest
 // i; a butterfly of shuffles picks the winner by (highest score, earliest
 // s, lowest i).  A row with no scored cell returns (0, 0, 0).
+//
+// Without the trace (TRACE = false) the step keeps the same three forms,
+// rings and end-cell rule and drops the move bits, the trace word and its
+// store: an interior cell is then the compare, the add and the two mins of
+// the recurrence, and min(side + 1, v_diag) is Hopper's fused add-min
+// (__viaddmin_s32), under 1% faster there.  With the trace the plain min
+// stays: the fused form measured no faster at the short batch shape and 5%
+// slower at the long one.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,7 +75,7 @@
 // Ring bytes per sequence, and what one warp needs of shared memory: two
 // rings with their mirrors.
 #define FTT_TB_RING(C) ((C) * 32 + FTT_TB_CHUNK + 8 <= 512 ? 512 : 1024)
-#define FTT_TB_RING_ALLOC(C) (FTT_TB_RING(C) + 8)
+#define FTT_TB_RING_ALLOC(C) (FTT_TB_RING(C) + ((C) > 8 ? (C) : 8))
 #define FTT_TB_WARP_SMEM(C) (2 * FTT_TB_RING_ALLOC(C))
 // Steps whose moves fill one 32-bit trace word of a lane
 #define FTT_TB_GROUP(C) (16 / (C))
@@ -94,9 +103,9 @@ __device__ __forceinline__ void ftt_tb_ring_put(int8_t* ring, int x,
 }
 
 // One anti-diagonal of one row: updates the lane's cells (p1 becomes s,
-// p2 becomes s-1) and its best boundary cell, and ors the step's moves
-// into the lane's trace word acc at bit `shift` = 2 * ((s-1) % G) * C.
-template <int C, int MODE>
+// p2 becomes s-1) and its best boundary cell, and with TRACE ors the step's
+// moves into the lane's trace word acc at bit `shift` = 2 * ((s-1) % G) * C.
+template <int C, int MODE, bool TRACE>
 __device__ __forceinline__ void ftt_tb_step(
     int s, int o, int d1, int d2, int lane, int ql, int tl, int end_bonus,
     const int8_t* ring_q, const int8_t* ring_t, int (&p1)[C], int (&p2)[C],
@@ -140,10 +149,13 @@ __device__ __forceinline__ void ftt_tb_step(
         const int diag = d2 ? p2[c] : p2_prev;
         const int side = min(up, left);
         const int v_diag = diag + (qc != tc ? 1 : 0);
-        int cand = min(side + 1, v_diag);
+        // the fused add-min where the clock says it helps: without the
+        // trace (with it, the moves need side and v_diag anyway)
+        int cand = TRACE ? min(side + 1, v_diag)
+                         : __viaddmin_s32(side, 1, v_diag);
         // ties prefer diag, then up, then left
-        bool b0 = v_diag != cand && up == side;      // move 1: up
-        bool b1 = v_diag != cand && up != side;      // move 2: left
+        bool b0 = TRACE && v_diag != cand && up == side;   // move 1: up
+        bool b1 = TRACE && v_diag != cand && up != side;   // move 2: left
         if (!FAST) {
             const int i = i0 + c;
             const int j = s - i;
@@ -161,18 +173,18 @@ __device__ __forceinline__ void ftt_tb_step(
             }
         }
         cur[c] = cand;
-        mine |= (b0 ? 1u : (b1 ? 2u : 0u)) << (2 * c);
+        if (TRACE) mine |= (b0 ? 1u : (b1 ? 2u : 0u)) << (2 * c);
     }
-    acc |= mine << shift;
+    if (TRACE) acc |= mine << shift;
 #pragma unroll
     for (int c = 0; c < C; ++c) { p2[c] = p1[c]; p1[c] = cur[c]; }
 }
 
 // Sweeps row b with the calling warp.  wsmem: this warp's
 // FTT_TB_WARP_SMEM(C) bytes of shared memory.  trow: the row's trace,
-// [2L / G][32] words.  Lane 0 writes (i, j, d) to ends[b], ends[B + b],
-// ends[2B + b].
-template <int C>
+// [2L / G][32] words (not touched without TRACE).  Lane 0 writes (i, j, d)
+// to ends[b], ends[B + b], ends[2B + b].
+template <int C, bool TRACE>
 __device__ void ftt_tb_sweep(const int8_t* __restrict__ qr,
                              const int8_t* __restrict__ tr, int ql, int tl,
                              int b, int B, int L, int end_bonus,
@@ -235,21 +247,19 @@ __device__ void ftt_tb_sweep(const int8_t* __restrict__ qr,
             const bool fast = s >= W + 4 && o + W - 1 < ql && s - o < tl &&
                               s - o - W >= 0;
             if (!fast)
-                ftt_tb_step<C, FTT_TB_EDGE>(s, o, d1, d2, lane, ql, tl,
-                                            end_bonus, ring_q, ring_t, p1,
-                                            p2, best, best_s, best_i,
-                                            best_d, acc, shift);
+                ftt_tb_step<C, FTT_TB_EDGE, TRACE>(
+                    s, o, d1, d2, lane, ql, tl, end_bonus, ring_q, ring_t,
+                    p1, p2, best, best_s, best_i, best_d, acc, shift);
             else if (d1)
-                ftt_tb_step<C, FTT_TB_FAST1>(s, o, d1, d2, lane, ql, tl,
-                                             end_bonus, ring_q, ring_t, p1,
-                                             p2, best, best_s, best_i,
-                                             best_d, acc, shift);
+                ftt_tb_step<C, FTT_TB_FAST1, TRACE>(
+                    s, o, d1, d2, lane, ql, tl, end_bonus, ring_q, ring_t,
+                    p1, p2, best, best_s, best_i, best_d, acc, shift);
             else
-                ftt_tb_step<C, FTT_TB_FAST0>(s, o, d1, d2, lane, ql, tl,
-                                             end_bonus, ring_q, ring_t, p1,
-                                             p2, best, best_s, best_i,
-                                             best_d, acc, shift);
-            if (u == G - 1 || s == S) {  // the word is full, or the row ends
+                ftt_tb_step<C, FTT_TB_FAST0, TRACE>(
+                    s, o, d1, d2, lane, ql, tl, end_bonus, ring_q, ring_t,
+                    p1, p2, best, best_s, best_i, best_d, acc, shift);
+            // the word is full, or the row ends
+            if (TRACE && (u == G - 1 || s == S)) {
                 trow[(size_t)((s - 1) / G) * 32 + lane] = acc;
                 acc = 0;
             }

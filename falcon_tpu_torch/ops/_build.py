@@ -90,8 +90,10 @@ def lib():
         build()
         so = ctypes.CDLL(LIB_PATH)
         p, i = ctypes.c_void_p, ctypes.c_int
-        so.ftt_extend.argtypes = [p, p, p, p, i, i, i, i, p, p]
-        so.ftt_extend.restype = i
+        so.ftt_extend_warp.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
+        so.ftt_extend_warp.restype = i
+        so.ftt_extend_block.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        so.ftt_extend_block.restype = i
         so.ftt_tb_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
         so.ftt_tb_fwd.restype = i
         so.ftt_tb_bwd.argtypes = [p, p, p, i, i, i, p, p, p]
@@ -103,6 +105,8 @@ def lib():
         so.ftt_cns_scan.restype = i
         so.ftt_cns_walk.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p]
         so.ftt_cns_walk.restype = i
+        so.ftt_chase.argtypes = [p, i, i, i, p, p, p]
+        so.ftt_chase.restype = i
         so.ftt_error_string.argtypes = [i]
         so.ftt_error_string.restype = ctypes.c_char_p
         _lib = so
@@ -118,8 +122,8 @@ def check(code, what):
 def check_batch(q, qlen, t, tlen, W):
     """Validate one [B, L] batch for K1/K2: int8 q/t of one shape, int32
     [B] lengths, all contiguous on one device; W a multiple of 32 in
-    [32, 1024] (K1 runs one thread per band lane and takes all of them;
-    K2 narrows W further, align_tb_cuda.WIDTHS)."""
+    [32, 1024] (K1 takes all of them, align_cuda.kernel_for says with which
+    kernel; K2 narrows W further, align_tb_cuda.WIDTHS)."""
     if q.dim() != 2 or t.shape != q.shape:
         raise ValueError("q and t must both be [B, L]; got %s and %s"
                          % (tuple(q.shape), tuple(t.shape)))

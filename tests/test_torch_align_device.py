@@ -111,6 +111,44 @@ def test_extend_batch_edge_rows():
                                   np.delete(pal, one_side, axis=1))
 
 
+def test_extend_batch_edge_rows_w512():
+    """The same rows at the widest band of K1's warp kernel, against
+    extend_batch_device (the Pallas kernel in interpret mode takes half a
+    minute at this band, and the case above holds its one-side-empty
+    quirk)."""
+    W, L = 512, 1024
+    q, qlen, t, tlen = _pairs(8, L, err=0.1, seed=5)
+    _edge_rows(q, qlen, t, tlen, seed=6)
+    xla = np.stack([np.asarray(a) for a in jad.extend_batch_device(
+        jnp.asarray(q.astype(np.int32)), jnp.asarray(qlen),
+        jnp.asarray(t.astype(np.int32)), jnp.asarray(tlen), W=W)])
+    got = _port(q, qlen, t, tlen, W)
+    np.testing.assert_array_equal(got, xla)
+    assert tuple(got[:, 0]) == (0, 0, 0)
+    assert tuple(got[:, 1]) == (0, 1, 1)
+    assert tuple(got[:, 2]) == (1, 0, 1)
+    assert tuple(got[:, 4]) == (L, L, 0)
+
+
+def test_kernel_for_covers_every_band():
+    """Every band the wrapper admits has exactly one kernel, chosen by W
+    alone: the warp sweep at its five bands, the block sweep at the rest;
+    anything else is refused on the CPU as on the card."""
+    from falcon_tpu_torch.ops import align_cuda
+    got = {W: align_cuda.kernel_for(W) for W in range(32, 1025, 32)}
+    assert sorted(W for W, k in got.items() if k == "warp") == \
+        [32, 64, 128, 256, 512]
+    assert set(got.values()) == {"warp", "block"} and len(got) == 32
+    for W in (0, 16, 48, 1056, -32):
+        with pytest.raises(ValueError):
+            align_cuda.kernel_for(W)
+    q, qlen, t, tlen = [torch.from_numpy(a) for a in
+                        _pairs(2, 128, err=0.1, seed=1)]
+    for W in (48, 1056):
+        with pytest.raises(ValueError):
+            align_cuda.extend_batch_cuda(q, qlen, t, tlen, W=W)
+
+
 def _specs(rng, nflat, n, L):
     off = rng.randint(-40, nflat + 40, n)
     ln = rng.randint(0, L + 1, n)

@@ -135,6 +135,25 @@ def test_consensus_scan_random_counts_match_jax():
     _scan_eq(jnp.asarray(msa), torch.from_numpy(msa), G, T)
 
 
+@pytest.mark.parametrize("depth,G,T,seed", [(3, 4, 96, 11), (14, 3, 80, 12),
+                                             (16, 3, 64, 13)])
+def test_consensus_scan_adversarial_counts_match_jax(depth, G, T, seed):
+    """The counts the card's K5 is held to its twin on
+    (chip_smoke.adversarial_counts: dense small counts on every level, many
+    equal scores, empty columns, the level in use jumping between 0 and
+    D - 1), through the twin and falcon_tpu: all six outputs bit-equal, at
+    the smallest, the default and the largest delta capacity."""
+    from chip_smoke import adversarial_counts
+    msa = adversarial_counts(np.random.default_rng(seed), G, T, depth)
+    assert msa.shape == (jdp.msa_size(G, T, depth),)
+    ref = jdp.consensus_scan(jnp.asarray(msa), G, T, depth)
+    got = k.consensus_scan_cuda(torch.from_numpy(msa), G, T, depth)
+    for a, b, name in zip(ref, got, NAMES):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), name)
+    cov = got[1].numpy()
+    assert (cov == 0).any() and (cov > 0).any()
+
+
 @pytest.mark.parametrize("err,seed", [(0.0, 51), (0.12, 52), (0.3, 53)])
 def test_backtrack_walk_matches_jax(err, seed):
     """The walk's rows decode to falcon_tpu's backtrack + compact_emit +

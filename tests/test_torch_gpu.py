@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dp_batch, ladder_walk, make_pairs, swept_cells_equal
+from chip_smoke import (adversarial_counts, dp_batch, ladder_walk,
+                        make_pairs, swept_cells_equal)
 from falcon_tpu_torch.cns.device import DeviceCns
 from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp
 from falcon_tpu_torch.ops import cns_dp_cuda as dpk
@@ -29,8 +30,14 @@ def rng():
     return np.random.default_rng(5)
 
 
-@pytest.mark.parametrize("W,L,B", [(64, 512, 24), (256, 2048, 16)])
+@pytest.mark.parametrize("W,L,B", [(64, 512, 24), (256, 2048, 16),
+                                   (32, 256, 40), (128, 1024, 70),
+                                   (512, 1024, 24), (512, 4096, 12),
+                                   (96, 512, 24), (1024, 2048, 8),
+                                   (256, 1000, 700)])
 def test_k1_matches_twin(rng, W, L, B):
+    """Every band of the warp kernel, two of the block kernel, an L that is
+    no multiple of 16, and more rows than one wave of warps."""
     args = make_pairs(rng, B, L, W)
     n = align_cuda.LAUNCHES["extend"]
     got = align_cuda.extend_batch_cuda(*args, W=W)
@@ -142,6 +149,38 @@ def test_k5_matches_twin(rng, G, T, L):
     for name, g, r in zip("bp cov gb_s gb_t gb_d gb_b".split(), got,
                           cns_dp.consensus_scan(msa, G, T, D)):
         assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("depth,G,T", [(3, 7, 193), (14, 9, 257),
+                                       (16, 6, 160), (14, 1, 1), (14, 2, 2),
+                                       (5, 3, 33)])
+def test_k5_matches_twin_on_adversarial_counts(rng, depth, G, T):
+    """Dense small counts on every level, many equal scores, empty columns,
+    the level in use jumping between 0 and D - 1 (adversarial_counts); T
+    below, at and off the prefetch distance and the 32-column coverage
+    line."""
+    host = adversarial_counts(rng, G, T, depth)
+    msa = torch.from_numpy(host.view(np.int16)).cuda().view(torch.uint16)
+    got = dpk.consensus_scan_cuda(msa, G, T, depth)
+    torch.cuda.synchronize()
+    for name, g, r in zip("bp cov gb_s gb_t gb_d gb_b".split(), got,
+                          cns_dp.consensus_scan(msa, G, T, depth)):
+        assert torch.equal(g, r), name
+
+
+def test_k2_results_unchanged_beside_k1(rng):
+    """K2 and K1 share tb_sweep.cuh: on the same rows K2's end cells equal
+    K1's and its trace the plain sweep's, at every band both take."""
+    for W, L, B in TB_SHAPES:
+        args = make_pairs(rng, B, L, W)
+        ends, trace = align_tb_cuda.tb_forward_cuda(*args, W, 3)
+        k1 = align_cuda.extend_batch_cuda(*args, W=W)
+        torch.cuda.synchronize()
+        p_ends, planes = band_sweep(*args, W, 3, keep_moves=True)
+        assert torch.equal(ends, k1) and torch.equal(ends, p_ends), W
+        same, n = swept_cells_equal(unpack_trace(trace, W), planes, args[1],
+                                    args[3], W)
+        assert same and n > 0, W
 
 
 @pytest.mark.parametrize("G,T,L", DP_SHAPES)

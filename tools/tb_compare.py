@@ -1,18 +1,26 @@
-"""Time K2 and K3 of two trees of falcon_tpu_torch on one card, in one call.
+"""Time the kernels of two trees of falcon_tpu_torch on one card, in one call.
 
-    python tools/tb_compare.py --parent DIR [--change DIR] [--shapes BxL,...]
+    python tools/tb_compare.py --parent DIR [--change DIR]
+        [--shapes BxL,...] [--k1-shapes BxL,...] [--k5-shapes TxG,...]
 
 DIR holds another tree's falcon_tpu_torch/ and nothing else of it (say
 `git archive <commit> falcon_tpu_torch | tar -x -C DIR`, or a copy of the
 package with a variant of a kernel in it).  The
 trees are timed in the order parent, change, change, parent, each in a
 process of its own (both packages are called falcon_tpu_torch, and each
-builds its own kernels), on the same inputs made from --seed by
-chip_smoke.make_pairs without its edge rows: read-vs-read pairs at 8-15%
-error, lengths in [L/2, L], W = 256.  Kernel times are CUDA events, the mean
-of --reps launches after a warm-up; every launch's trace exceeds L2.  One
-JSON line per (tree, shape), then a summary line per shape; `same_ends`
-says whether the two trees' K2 agreed on the end cells.
+builds its own kernels), on the same inputs made from --seed:
+
+  --shapes     K2 and K3 at (B, L), W = 256: chip_smoke.make_pairs without
+               its edge rows, read-vs-read pairs at 8-15% error, lengths in
+               [L/2, L]; every launch's trace exceeds L2
+  --k1-shapes  K1 at (B, L), W = 256, on the same kind of pairs
+  --k5-shapes  K5 at (T, G), D = 14, on the counts of one DP batch
+               (chip_smoke.dp_batch through the tree's own K2-K4)
+
+An empty list skips its kernels.  Kernel times are CUDA events, the mean of
+--reps launches after a warm-up.  One JSON line per (tree, kernel, shape),
+then a summary line per kernel and shape; `same` says whether the two
+trees' outputs agreed (a checksum of the end cells, or of K5's six outputs).
 """
 import argparse
 import json
@@ -21,42 +29,77 @@ import subprocess
 import sys
 
 W = 256
+D = 14
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def worker(shapes, seed, reps):
+def worker(args):
     """Times the falcon_tpu_torch that PYTHONPATH puts first."""
     import numpy as np
     import torch
-    from chip_smoke import cuda_ms, make_pairs
-    from falcon_tpu_torch.ops import align_tb_cuda as k
-    rng = np.random.default_rng(seed)
-    for B, L in shapes:
+    from chip_smoke import cuda_ms, dp_batch, make_pairs
+    from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp_cuda
+    tree = os.path.dirname(os.path.dirname(os.path.dirname(
+        align_cuda.__file__)))
+
+    def out(**kv):
+        print(json.dumps(dict(tree=tree, **kv)), flush=True)
+    rng = np.random.default_rng(args.seed)
+    for B, L in args.shapes:
         q, ql, t, tl = make_pairs(rng, B, L, W, edge=False)
         (ends, trace), fwd = cuda_ms(
-            lambda: k.tb_forward_cuda(q, ql, t, tl, W, 3), reps=reps)
-        _, bwd = cuda_ms(lambda: k.tb_backward_cuda(trace, ends, q, W),
-                         reps=reps)
-        print(json.dumps(dict(tree=os.path.dirname(os.path.dirname(
-            os.path.dirname(k.__file__))), B=B, L=L, W=W, k2_ms=fwd,
-            k3_ms=bwd, ends_sum=int(ends.sum()))), flush=True)
+            lambda: align_tb_cuda.tb_forward_cuda(q, ql, t, tl, W, 3),
+            reps=args.reps)
+        _, bwd = cuda_ms(
+            lambda: align_tb_cuda.tb_backward_cuda(trace, ends, q, W),
+            reps=args.reps)
+        out(kernel="K2+K3", shape=[B, L], W=W, k2_ms=fwd, k3_ms=bwd,
+            checksum=int(ends.sum()))
         del trace
         torch.cuda.empty_cache()
+    for B, L in args.k1_shapes:
+        q, ql, t, tl = make_pairs(rng, B, L, W, edge=False)
+        ends, ms = cuda_ms(
+            lambda: align_cuda.extend_batch_cuda(q, ql, t, tl, W=W),
+            reps=args.reps)
+        out(kernel="K1", shape=[B, L], W=W, k1_ms=ms,
+            checksum=int(ends.sum()))
+    for T, G in args.k5_shapes:
+        msa, rest = dp_batch(rng, G, T, min(T // 2, 16384), D,
+                             np.float32(0.3))
+        cns_dp_cuda.accumulate_tags_planes_cuda(msa, *rest)
+        del rest
+        torch.cuda.empty_cache()
+        scan, ms = cuda_ms(
+            lambda: cns_dp_cuda.consensus_scan_cuda(msa, G, T, D),
+            reps=args.reps)
+        out(kernel="K5", shape=[T, G], D=D, k5_ms=ms,
+            checksum=sum(int(x.long().sum()) for x in scan))
+        del msa, scan
+        torch.cuda.empty_cache()
+
+
+def shape_list(text):
+    return [tuple(int(x) for x in s.split("x"))
+            for s in text.split(",") if s]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent")
     ap.add_argument("--change", default=HERE)
-    ap.add_argument("--shapes", default="1024x1024,256x16384")
+    ap.add_argument("--shapes", type=shape_list,
+                    default="1024x1024,256x16384")
+    ap.add_argument("--k1-shapes", type=shape_list,
+                    default="16384x1024,4096x8192")
+    ap.add_argument("--k5-shapes", type=shape_list,
+                    default="8192x360,32768x90")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    shapes = [tuple(int(x) for x in s.split("x"))
-              for s in args.shapes.split(",")]
     if args.worker:
-        worker(shapes, args.seed, args.reps)
+        worker(args)
         return 0
     if not args.parent:
         ap.error("--parent is required")
@@ -64,6 +107,7 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+    passed = list(argv if argv is not None else sys.argv[1:])
     runs = []
     for side, root in (("parent", args.parent), ("change", args.change),
                        ("change", args.change), ("parent", args.parent)):
@@ -71,9 +115,8 @@ def main(argv=None):
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [os.path.abspath(root), HERE]))
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker",
-             "--shapes", args.shapes, "--seed", str(args.seed), "--reps",
-             str(args.reps)], capture_output=True, text=True, env=env)
+            [sys.executable, os.path.abspath(__file__), "--worker"] + passed,
+            capture_output=True, text=True, env=env)
         if out.returncode:
             sys.stderr.write(out.stderr)
             return out.returncode
@@ -81,15 +124,20 @@ def main(argv=None):
             if ln.startswith("{"):
                 runs.append(dict(json.loads(ln), side=side))
                 print(json.dumps(runs[-1]), flush=True)
-    for B, L in shapes:
-        rows = [r for r in runs if (r["B"], r["L"]) == (B, L)]
+    seen = []
+    for r in runs:
+        if (r["kernel"], r["shape"]) not in seen:
+            seen.append((r["kernel"], r["shape"]))
+    for kernel, shape in seen:
+        rows = [r for r in runs if (r["kernel"], r["shape"]) == (kernel,
+                                                                 shape)]
         print(json.dumps(dict(
-            card=card, B=B, L=L, W=W,
-            same_ends=len({r["ends_sum"] for r in rows}) == 1,
+            card=card, kernel=kernel, shape=shape,
+            same=len({r["checksum"] for r in rows}) == 1,
             **{"%s_%s" % (side, key): [r[key] for r in rows
                                        if r["side"] == side]
                for side in ("parent", "change")
-               for key in ("k2_ms", "k3_ms")})), flush=True)
+               for key in rows[0] if key.endswith("_ms")})), flush=True)
     return 0
 
 

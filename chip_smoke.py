@@ -19,12 +19,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
             and at W = 96 (the block kernel); then bit-equal and timed at
             the (B, L) the pipeline's extender launches at L = 1024 and
             8192
+  sharded_k1  the extender's multi-device path: sharded_specs_extend over
+            make_mesh() (over cuda:0 twice on a one-card machine) at
+            (B, L) = (16384, 1024) and (4096, 8192), bit-equal to one K1
+            launch on the same packed words and specs, both timed; logs
+            the shard sizes and the K1 launches per device
   k2        K2 (forward DP, two-bit trace) against band_sweep on the cells
             each row swept, K3 (walk) against walk_back on the twin's
             trace, and the pair against align_tb_batch, all bit-equal, at
             the (B, L) DeviceCns._batch_for launches at L = 1024 and 16384
             and at (1024, 1024) and (256, 16384); K2 and K3 timed apart,
             each with its bound
+  tb_bands  K2 + K3 at W = 96, 192, 512 and 1024, the bands the warp
+            route lacks, each on the route align_tb_cuda.kernel_for picks:
+            bit-equal to align_tb_batch at the (B, L) DeviceCns._batch_for
+            launches at L 1024, and at L 16384 for W 1024 (the largest
+            trace a row, 256 rows under the trace budget); K2 and K3 timed
+            with their bounds and K3's chain floor
   pipeline  the port's Pipeline on a simulated genome (24x coverage, 9 kb
             mean reads, 8% error), host-MSA consensus: timings, occupancy,
             kernel launch counts (K1-K3 must be > 0, K4-K6 0), contigs,
@@ -32,6 +43,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   pipeline_dp  the same on the same genome with FTPU_CNS_DP=1, the
             device-DP consensus: every kernel K1-K6 must launch, the same
             bars; its phase walls beside the host-MSA run's
+  pipeline_mp  two processes of the Pipeline, children of this script
+            (--pipeline-child), on the same inputs and the same card,
+            joined by FTPU_COORDINATOR_ADDRESS on 127.0.0.1 (gloo) with
+            FTPU_CNS_DP unset: each must report the DP consensus on by
+            default, launch K1 and K4-K6 and load no jax / falcon_tpu
+            module; every artifact tests/test_multiprocess.py compares
+            must be byte-equal between them and to pipeline_dp's; their
+            walls and phase splits beside the one-process runs.  Both are
+            killed after 420 s
   dp_kernels  K4 (tags), K5 (consensus scan) and K6 (backtrack walk)
             against their plain twins on the card, bit-equal, at the
             smallest and largest T bucket the DP pipeline ran, with G from
@@ -52,9 +72,10 @@ floors stay out of the `kernels` line.
 With FTPU_PROFILE=<absolute dir> both pipelines run under torch.profiler
 and a `_device_time` line lists each run's device time by kernel.
 
-An `imports` line reports that no jax and no falcon_tpu module was loaded
-(else the run fails).  The line before the last is one JSON object
-describing every kernel; the last line is {"ok": true, "device": {...}}.
+An `imports` line reports that no jax and no falcon_tpu module was loaded,
+in this process and in the pipeline_mp children (else the run fails).  The
+line before the last is one JSON object describing every kernel; the last
+line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero before printing either.
 """
 import argparse
@@ -464,6 +485,150 @@ def phase_k2(rng, card, clock, lat):
     return err2, err3, times
 
 
+TB_BANDS = (96, 192, 512, 1024)       # the block route's bands checked
+TB_BANDS_LONG = (1024, 16384)         # (W, L): the long launch checked
+
+
+def phase_tb_bands(rng, card, clock, lat):
+    """K2 + K3 at bands the warp route lacks, each on the route
+    kernel_for picks, against align_tb_batch, bit-equal, at the
+    (B, L) DeviceCns._batch_for launches at L 1024 for every band of
+    TB_BANDS and at TB_BANDS_LONG (W 1024, whose trace per row is the
+    largest, so the trace budget sets B there: 256 rows at L 16384);
+    then K2 and K3 timed apart with bounds and K3's chain floor (its
+    walk reads device memory a step)."""
+    from falcon_tpu_torch.cns.device import DeviceCns
+    from falcon_tpu_torch.ops import align_tb_cuda as k
+    from falcon_tpu_torch.ops.align_device import band_cells
+    from falcon_tpu_torch.ops.align_tb import align_tb_batch
+    runs = [(W, 1024) for W in TB_BANDS] + [TB_BANDS_LONG]
+    for W, L in runs:
+        cns = DeviceCns(device="cuda", W=W)
+        B = cns._batch_for(L)
+        args = make_pairs(rng, B, L, W)
+        q, ql, t, tl = args
+        ref, plain = cuda_ms(lambda: align_tb_batch(*args, W=W), warm=False)
+        got = k.align_tb_batch_cuda(*args, W=W)
+        torch.cuda.synchronize()
+        e = max_err(got, ref)
+        eq = all(torch.equal(g, r) for g, r in zip(got, ref))
+        log(phase="tb_bands_parity", W=W, L=L, B=B, route=k.kernel_for(W),
+            max_abs_err=e, bit_equal=eq,
+            trace_bytes=B * k.trace_row_bytes(L, W),
+            moves_budget=cns.moves_budget)
+        if not eq:
+            raise SystemExit("K2/K3 (%s route) differ from align_tb_batch at "
+                             "W=%d B=%d L=%d" % (k.kernel_for(W), W, B, L))
+        del ref, got
+        clock.mark()
+        (ends, trace), fwd = cuda_ms(
+            lambda: k.tb_forward_cuda(*args, W, 3), reps=3)
+        (mv, _), bwd = cuda_ms(
+            lambda: k.tb_backward_cuda(trace, ends, q, W), reps=3)
+        mhz = clock.peak()
+        del trace
+        qn, tn = ql.cpu().numpy(), tl.cpu().numpy()
+        cells = int(band_cells(qn, tn, W).sum())
+        steps = np.minimum(qn + tn, 2 * L)
+        trace_bytes = int(steps.sum()) * W // 4
+        b2, by2 = bound_ms(2 * B * L + 8 * B + 12 * B + trace_bytes,
+                           cells * OPS_PER_CELL["K2"], mhz)
+        # a walked step reads the 8 bytes of its cell's two plane words
+        # and at most one q byte
+        walked = sum(int((((mv >> sh) & 3) != 3).sum()) for sh in (0, 2, 4, 6))
+        b3, by3 = bound_ms(8 * walked + int(ends[0].sum()) + 12 * B +
+                           2 * L * B * 5 // 4, walked * OPS_PER_WALK_STEP,
+                           mhz)
+        longest = int((ends[0] + ends[1]).max())
+        c3 = chain_ms(longest, lat["global"], mhz)
+        log(phase="tb_bands_time", card=card, B=B, L=L, W=W,
+            route=k.kernel_for(W), sm_clock_mhz=mhz, k2_ms=fwd,
+            k2k3_plain_ms=plain, k2_bound_ms=b2, k2_bound_by=by2,
+            k2_share_of_bound=share_of_bound("K2 W=%d %dx%d" % (W, B, L),
+                                             fwd, b2),
+            band_cells=cells, trace_bytes=trace_bytes, k3_ms=bwd,
+            k3_bound_ms=b3, k3_bound_by=by3,
+            k3_share_of_bound=share_of_bound("K3 W=%d %dx%d" % (W, B, L),
+                                             bwd, b3),
+            k3_chain_floor_ms=c3, walked_steps=walked,
+            longest_walk_diagonals=longest)
+        del args, q, ql, t, tl, ends, mv
+        torch.cuda.empty_cache()
+
+
+SHARDED_K1 = ((16384, 1024), (4096, 8192))   # (B, L), W_MAIN
+
+
+def spec_batch(q, ql, t, tl):
+    """make_pairs' planes as the extender's input: the rows' codes in one
+    flat array and [6, B] int32 specs of forward slices, the odd rows read
+    backward (dir -1).  Returns (flat uint8, sel)."""
+    q, ql, t, tl = (x.cpu().numpy() for x in (q, ql, t, tl))
+    B, L = q.shape
+    ar = np.arange(L)
+    fq, ft = q[ar < ql[:, None]], t[ar < tl[:, None]]
+    qo = np.concatenate([[0], np.cumsum(ql)[:-1]])
+    to = len(fq) + np.concatenate([[0], np.cumsum(tl)[:-1]])
+    back = np.arange(B) % 2 == 1
+    # a backward spec starts at the slice's last base: its plane is the
+    # row reversed, which is still a pair of related reads
+    sel = np.stack([np.where(back, qo + ql - 1, qo), ql,
+                    np.where(back, -1, 1), np.where(back, to + tl - 1, to),
+                    tl, np.where(back, -1, 1)]).astype(np.int32)
+    sel[:, (ql == 0) | (tl == 0)] = 0     # empty rows: nothing to read
+    return np.concatenate([fq, ft]).astype(np.uint8), sel
+
+
+def phase_sharded_k1(rng, card):
+    """sharded_specs_extend over make_mesh() (two entries on the one card
+    of a one-card machine) against one K1 launch on the same packed words
+    and specs, bit-equal, at SHARDED_K1; both timed (gather + K1, the
+    sharded call with its per-shard copy of the specs).  Logs the shard
+    sizes and the K1 launches per device of one sharded call."""
+    from falcon_tpu_torch.ops import align_cuda
+    from falcon_tpu_torch.ops.align_device import (gather_specs2_packed,
+                                                   pack_flat_2bit)
+    from falcon_tpu_torch.parallel import mesh as pm
+    mesh = pm.make_mesh() if torch.cuda.device_count() > 1 else \
+        pm.make_mesh(devices=("cuda:0", "cuda:0"))
+    dev = mesh[0]
+    for B, L in SHARDED_K1:
+        flat, sel = spec_batch(*make_pairs(rng, B, L, W_MAIN))
+        words = torch.from_numpy(pack_flat_2bit(flat).astype(np.int64))
+        reps = pm.replicate(words, mesh)
+        sel_d = torch.from_numpy(sel).to(dev)
+
+        def one():
+            qd, td = gather_specs2_packed(reps[dev], *sel_d, L=L, fill_q=4,
+                                          fill_t=5)
+            return align_cuda.extend_batch_cuda(qd, sel_d[1], td, sel_d[4],
+                                                W=W_MAIN)
+        ref, one_ms = cuda_ms(one, reps=3)
+        before = dict(align_cuda.BY_DEVICE)
+        got = pm.sharded_specs_extend(mesh, reps, sel, L, W_MAIN, 3)
+        torch.cuda.synchronize()
+        per_dev = {d: n - before.get(d, 0)
+                   for d, n in align_cuda.BY_DEVICE.items()
+                   if n != before.get(d, 0)}
+        _, ms = cuda_ms(lambda: pm.sharded_specs_extend(mesh, reps, sel, L,
+                                                        W_MAIN, 3), reps=3)
+        e = max_err([got], [ref])
+        shards = [hi - lo for lo, hi in pm.shard_bounds(B, len(mesh))]
+        log(phase="sharded_k1", card=card, B=B, L=L, W=W_MAIN,
+            mesh=[str(d) for d in mesh], shard_rows=shards,
+            k1_launches_per_device=per_dev, max_abs_err=e,
+            bit_equal=bool(torch.equal(got, ref)), sharded_ms=ms,
+            one_launch_ms=one_ms)
+        if e or not torch.equal(got, ref):
+            raise SystemExit("sharded K1 differs from one K1 launch at B=%d "
+                             "L=%d" % (B, L))
+        if sum(per_dev.values()) != sum(1 for n in shards if n):
+            raise SystemExit("sharded K1: launches %s for shards %s"
+                             % (per_dev, shards))
+        del ref, got, reps, sel_d, words
+        torch.cuda.empty_cache()
+
+
 def counters():
     """Every kernel's launch counter, by kernel: (LAUNCHES dict, key)."""
     from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp_cuda
@@ -475,14 +640,29 @@ def counters():
             "K6": (cns_dp_cuda.LAUNCHES, "cns_walk")}
 
 
-def phase_pipeline(args, workdir, dp):
-    """The port's Pipeline on the simulated genome, consensus through the
-    device-DP path (dp) or the host-MSA path; returns (launches by kernel,
-    timings).  The DP run must launch every kernel, the host-MSA run
-    K1-K3 and none of K4-K6."""
-    from falcon_tpu_torch.pipeline.driver import Pipeline
+# what tests/test_multiprocess.py holds byte-equal between processes
+MP_ARTIFACTS = (
+    "2-asm-falcon/p_ctg.fa", "2-asm-falcon/a_ctg.fa",
+    "2-asm-falcon/sg_edges_list", "2-asm-falcon/ctg_paths",
+    "2-asm-falcon/utg_data", "2-asm-falcon/asm.gfa", "2-asm-falcon/sg.gfa",
+    "2-asm-falcon/contig.gfa2", "0-rawreads/preads.fasta",
+    "1-preads_ovl/preads.ovl")
+
+
+def artifact_digests(out_dir):
+    """{artifact: sha256 hex} of MP_ARTIFACTS under out_dir."""
+    import hashlib
+    out = {}
+    for rel in MP_ARTIFACTS:
+        with open(os.path.join(out_dir, rel), "rb") as f:
+            out[rel] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def write_run(args, workdir, name):
+    """The simulated genome's reads and fc_run.cfg in workdir (the same
+    for every pipeline phase: same size, seed and blocks)."""
     from falcon_tpu_torch.utils import simcheck
-    name = "pipeline_dp" if dp else "pipeline"
     t0 = time.time()
     genome = simcheck.write_sim_run(
         workdir, args.genome_size, coverage=24, mean_len=9000, error=0.08,
@@ -490,6 +670,18 @@ def phase_pipeline(args, workdir, dp):
     log(phase=name + "_sim", genome_size=args.genome_size,
         block_mb=args.block_mb, seed=args.seed,
         sim_s=round(time.time() - t0, 3))
+    return genome
+
+
+def phase_pipeline(args, workdir, dp):
+    """The port's Pipeline on the simulated genome, consensus through the
+    device-DP path (dp) or the host-MSA path; returns (launches by kernel,
+    timings, artifact digests).  The DP run must launch every kernel, the
+    host-MSA run K1-K3 and none of K4-K6."""
+    from falcon_tpu_torch.pipeline.driver import Pipeline
+    from falcon_tpu_torch.utils import simcheck
+    name = "pipeline_dp" if dp else "pipeline"
+    genome = write_run(args, workdir, name)
     cnt = counters()
     for d, key in cnt.values():
         d[key] = 0
@@ -529,7 +721,119 @@ def phase_pipeline(args, workdir, dp):
             score["mean_identity"] < 0.995:
         raise SystemExit("%s: assembly below bar: recovery %.4f identity %s"
                          % (name, score["recovery"], score["mean_identity"]))
-    return launches, pipe.timings
+    return launches, pipe.timings, artifact_digests(workdir)
+
+
+MP_PROCS = 2
+MP_TIMEOUT_S = 420
+
+
+def free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_pipeline_mp(args, workdir, card, dp_digests):
+    """MP_PROCS processes of the port's Pipeline on the same simulated
+    inputs, each a child of this script (--pipeline-child), all on
+    cuda:0, joined through FTPU_COORDINATOR_ADDRESS on 127.0.0.1 with
+    FTPU_CNS_DP unset.  Each child must report use_dp on, launch K1 and
+    K4-K6, load no jax / falcon_tpu module, and write every MP_ARTIFACTS
+    file byte-equal to the other's and to the single-process DP run's
+    (dp_digests).  Both are killed when MP_TIMEOUT_S is up.  Returns the
+    children's reports."""
+    write_run(args, workdir, "pipeline_mp")
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.time()
+    try:
+        for rank in range(MP_PROCS):
+            env = dict(os.environ)
+            for key in ("FTPU_CNS_DP", "FTPU_PROFILE"):
+                env.pop(key, None)
+            env.update(FTPU_COORDINATOR_ADDRESS="127.0.0.1:%d" % port,
+                       FTPU_NUM_PROCESSES=str(MP_PROCS),
+                       FTPU_PROCESS_ID=str(rank))
+            logs.append(open(os.path.join(workdir, "child%d.log" % rank),
+                             "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--pipeline-child", workdir,
+                 os.path.join(workdir, "out%d" % rank)],
+                env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = t0 + MP_TIMEOUT_S
+        rcs = [p.wait(timeout=max(1.0, deadline - time.time()))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    reports, tails = [], []
+    for f in logs:
+        f.seek(0)
+        lines = f.read().splitlines()
+        f.close()
+        tails.append(lines[-20:])
+        rep = [ln for ln in lines if ln.startswith('{"phase": "mp_child"')]
+        reports.append(json.loads(rep[-1]) if rep else None)
+    if rcs != [0] * MP_PROCS or None in reports:
+        raise SystemExit("pipeline_mp: children exited %s after %.1f s; "
+                         "last lines %s" % (rcs, wall, tails))
+    digests = [artifact_digests(os.path.join(workdir, "out%d" % r))
+               for r in range(MP_PROCS)]
+    same = {rel: all(d[rel] == dp_digests[rel] for d in digests)
+            for rel in MP_ARTIFACTS}
+    log(phase="pipeline_mp", card=card, processes=MP_PROCS, wall_s=wall,
+        artifacts_equal_to_pipeline_dp=same, children=reports)
+    bad = [r["rank"] for r in reports
+           if not r["use_dp"] or r["loaded"] or
+           min(r["launches"][k] for k in ("K1", "K4", "K5", "K6")) < 1]
+    if bad or not all(same.values()):
+        raise SystemExit("pipeline_mp: children %s failed (use_dp, launches"
+                         " or imports), artifacts equal %s" % (bad, same))
+    return reports
+
+
+def pipeline_child(workdir, out_dir):
+    """One process of phase_pipeline_mp: the port's Pipeline on the inputs
+    in workdir, written to out_dir; prints one JSON report line (its INFO
+    log goes to stderr)."""
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from falcon_tpu_torch.cns.device import DeviceCns
+    from falcon_tpu_torch.pipeline.driver import Pipeline
+    cnt = counters()
+    for d, key in cnt.values():
+        d[key] = 0
+    os.chdir(workdir)
+    t0 = time.time()
+    pipe = Pipeline("fc_run.cfg", out_dir, device="cuda")
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    use_dp = DeviceCns(device="cuda").use_dp
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: d[key] for k, (d, key) in cnt.items()}
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "falcon_tpu"))
+    log(phase="mp_child", rank=rank, world=dist.get_world_size(),
+        use_dp=use_dp,
+        dp_path_ran="phase0_cns_dp_batches" in pipe.timings,
+        launches=launches, wall_s=wall, loaded=loaded, **{
+            key: pipe.timings.get(key)
+            for key in ("phase0_masking", "phase0_overlap",
+                        "phase0_consensus", "phase1_overlap",
+                        "phase2_graph", "total")})
+    dist.destroy_process_group()
+    return 0
 
 
 def dp_batch(rng, G, T, L, D, max_diff):
@@ -741,19 +1045,26 @@ def phase_dp_kernels(rng, card, clock, lat, buckets, min_cov=2,
 
 
 def run_phases(args, rng, card, clock):
-    """Every phase after env, in order; returns the kernels list."""
+    """Every phase after env, in order; returns (the kernels list, the
+    jax / falcon_tpu modules each pipeline_mp child loaded)."""
     phase_build()
     lat = phase_latency(card)
     e1, t1 = phase_k1(rng, card, clock)
+    phase_sharded_k1(rng, card)
     e2, e3, t2 = phase_k2(rng, card, clock, lat)
+    phase_tb_bands(rng, card, clock, lat)
     with tempfile.TemporaryDirectory() as d:
-        launches, host_t = phase_pipeline(args, d, dp=False)
+        launches, host_t, _ = phase_pipeline(args, d, dp=False)
     with tempfile.TemporaryDirectory() as d:
-        launches_dp, dp_t = phase_pipeline(args, d, dp=True)
+        launches_dp, dp_t, dp_digests = phase_pipeline(args, d, dp=True)
+    with tempfile.TemporaryDirectory() as d:
+        children = phase_pipeline_mp(args, d, card, dp_digests)
+    phases = ("phase0_masking", "phase0_overlap", "phase0_consensus",
+              "phase1_overlap", "phase2_graph", "total")
     log(phase="pipeline_compare", card=card, **{
-        key: {"host_msa": host_t.get(key), "device_dp": dp_t.get(key)}
-        for key in ("phase0_masking", "phase0_overlap", "phase0_consensus",
-                    "phase1_overlap", "phase2_graph", "total")})
+        key: {"host_msa": host_t.get(key), "device_dp": dp_t.get(key),
+              "device_dp_2proc": [c[key] for c in children]}
+        for key in phases})
     buckets = sorted(dp_t["phase0_cns_dp_batches"])
     buckets = sorted({buckets[0], buckets[-1]})
     log(phase="dp_buckets", hit=dp_t["phase0_cns_dp_batches"],
@@ -777,12 +1088,13 @@ def run_phases(args, rng, card, clock):
                                     ("K6", "K6 backtrack walk", 562))]
     # no single PyTorch call computes a banded edit DP, a traceback walk,
     # the tag decode-and-scatter, the consensus chain or its walk
-    return [dict(name=name, route="cuda",
-                 source="falcon_tpu_torch/csrc/" + src, replaces=repl,
-                 launches=n, max_abs_err=err, ms=t["ms"],
-                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                 bound_by=t["bound_by"], library_ms=None)
-            for name, src, repl, n, err, t in rows]
+    kernels = [dict(name=name, route="cuda",
+                    source="falcon_tpu_torch/csrc/" + src, replaces=repl,
+                    launches=n, max_abs_err=err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=None)
+               for name, src, repl, n, err, t in rows]
+    return kernels, {c["rank"]: c["loaded"] for c in children}
 
 
 def main(argv=None):
@@ -792,11 +1104,15 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--log", default=None,
                     help="write the pipeline's INFO log to this file")
+    ap.add_argument("--pipeline-child", nargs=2, default=None,
+                    help=argparse.SUPPRESS)       # pipeline_mp's children
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA GPU", file=sys.stderr)
         return 1
+    if args.pipeline_child:
+        return pipeline_child(*args.pipeline_child)
     if args.log:
         logging.basicConfig(
             filename=args.log, level=logging.INFO,
@@ -805,14 +1121,16 @@ def main(argv=None):
     card = phase_env()
     clock = ClockSampler()
     try:
-        kernels = run_phases(args, rng, card, clock)
+        kernels, child_loaded = run_phases(args, rng, card, clock)
     finally:
         clock.close()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "falcon_tpu"))
-    log(phase="imports", jax_or_falcon_tpu_modules=loaded)
-    if loaded:
-        raise SystemExit("the port loaded %s" % loaded)
+    log(phase="imports", jax_or_falcon_tpu_modules=loaded,
+        pipeline_mp_children=child_loaded)
+    if loaded or any(child_loaded.values()):
+        raise SystemExit("the port loaded %s (children: %s)"
+                         % (loaded, child_loaded))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Device consensus (port of falcon_tpu/cns/device.py).
 
 Two paths, chosen as in falcon_tpu (use_dp; FTPU_CNS_DP=1 selects the
-device-DP path, anything else the host-MSA path):
+device-DP path and another value the host-MSA path; unset, the device-DP
+path runs when this process is one of several of a torch.distributed
+group, the host-MSA path otherwise):
 
   host MSA   the device aligns every (support, seed-range) pair of a chunk
              of seed groups with traceback -- K2 + K3 through
@@ -34,7 +36,7 @@ from ..ops import consensus_dp
 from ..ops import native
 from ..ops.align_device import DeviceExtender, gather_pad2, pack_tasks
 from ..ops.align_tb import moves_to_alignment, unpack_moves
-from ..ops.align_tb_cuda import (WIDTHS, align_tb_batch_cuda,
+from ..ops.align_tb_cuda import (align_tb_batch_cuda, kernel_for,
                                  trace_row_bytes)
 from ..utils.device import resolve_device
 from . import runner
@@ -160,16 +162,23 @@ class DeviceCns:
         self.max_rows = 1024 if on_cpu else 4096
         # the consensus band (falcon_tpu's validated default, FTPU_CNS_W)
         self.W = W or int(os.environ.get("FTPU_CNS_W", "256"))
-        if not on_cpu and self.W not in WIDTHS:
-            # K2/K3 hold W/32 cells a lane and exist for these bands only;
-            # the plain twin takes any multiple of 32 up to 1024
-            raise ValueError("on a CUDA device the consensus band "
-                             "(FTPU_CNS_W) must be one of %s; got %d"
-                             % (WIDTHS, self.W))
+        try:
+            kernel_for(self.W)   # K2/K3 and the twin take the same bands
+        except ValueError as e:
+            raise ValueError("the consensus band (FTPU_CNS_W): %s" % e) \
+                from None
         # the device-DP path: falcon_tpu's switch and sizes, read with the
-        # same meanings (one process, so FTPU_CNS_DP alone decides)
+        # same meanings.  Unset, FTPU_CNS_DP defaults by the number of
+        # processes, not of devices (falcon_tpu's rule): under several the
+        # host-MSA stage would run whole on every one of them
         if use_dp is None:
-            use_dp = os.environ.get("FTPU_CNS_DP", "") == "1"
+            env = os.environ.get("FTPU_CNS_DP", "")
+            if env:
+                use_dp = env == "1"
+            else:
+                dist = torch.distributed
+                use_dp = dist.is_available() and dist.is_initialized() and \
+                    dist.get_world_size() > 1
         self.use_dp = use_dp
         self.dp_delta_cap = dp_delta_cap or int(
             os.environ.get("FTPU_CNS_DP_DELTA", str(cns_dp.D_DEFAULT)))

@@ -35,6 +35,18 @@
 // lane of the warp issues, so a block holds only 8 rows: a launch of 1024
 // rows then spreads over all 132 SMs, two warps to a scheduler, and the
 // chain's latency rather than instruction issue sets the time.
+//
+// The warp route holds W/32 cells a lane and packs 16/(W/32) steps into a
+// lane's trace word, so it exists for W = 32, 64, 128 and 256 only.  Every
+// other multiple of 32 up to 1024 takes the block route
+// (ops.align_tb_cuda.kernel_for), which keeps no band the reference takes
+// out of reach: K2 is band_dp.cuh's block-per-row sweep with its two-bit
+// trace (W/4 bytes a step, the same bytes as the warp route's, laid out as
+// two bit planes), and K3 walks each row with one thread, reading the pair
+// of plane words that holds its cell straight from device memory.  Each
+// step of that walk waits on its own load, so the latency of those loads
+// sets the block route's K3 time; it is the simple form, not a tuned one.
+#include "band_dp.cuh"
 #include "tb_sweep.cuh"
 
 #define FTT_TB_FWD_ROWS 4      // K2: warps (rows) per block
@@ -218,6 +230,73 @@ ftt_tb_bwd_kernel(const unsigned* __restrict__ trace,
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// K2, block route: a block of W threads per row (band_dp.cuh with TRACE).
+__global__ void __launch_bounds__(1024)
+ftt_tb_fwd_block_kernel(const int8_t* __restrict__ q,
+                        const int8_t* __restrict__ t,
+                        const int* __restrict__ qlen,
+                        const int* __restrict__ tlen, int B, int L, int W,
+                        int end_bonus, int* __restrict__ ends,
+                        unsigned* __restrict__ trace) {
+    ftt_band_dp<true>(q, t, qlen, tlen, B, L, W, end_bonus, ends, trace);
+}
+
+#define FTT_TB_BWD_BLOCK_THREADS 64
+
+// K3, block route: thread b walks row b of the block route's trace
+// ([B, 2L, W/16] words) with the warp route's rules (the move stream packed
+// four to a byte, 3 past the walk and as the padding of a last byte when
+// 2L % 4 != 0; an out-of-band cell reads as move 0, base 0).
+__global__ void __launch_bounds__(FTT_TB_BWD_BLOCK_THREADS)
+ftt_tb_bwd_block_kernel(const unsigned* __restrict__ trace,
+                        const int8_t* __restrict__ q,
+                        const int* __restrict__ ends, int B, int L, int W,
+                        uint8_t* __restrict__ moves,
+                        int8_t* __restrict__ bases) {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= B) return;
+    const int words = W / 16;
+    const int S = 2 * L;
+    const unsigned* trow = trace + (size_t)b * S * words;
+    const int8_t* qr = q + (size_t)b * L;
+    int i = ends[b];
+    int j = ends[B + b];
+    bool done = (i | j) == 0;
+    unsigned byte = 0;
+    for (int s = S; s >= 1; --s) {
+        const int k = S - s;             // index in the END->START stream
+        int m = 3, base = 4;
+        if (!done && i + j == s) {
+            const int l = i - ftt_band_off(s, W);
+            // q[i-1] is read beside the trace words, not after the move
+            // they hold: the step then waits on one load, not two in a row
+            const int qv = (i >= 1 && i <= L) ? min((int)qr[i - 1], 4) : 4;
+            if ((unsigned)l < (unsigned)W) {
+                const uint2 w = *(const uint2*)(
+                    trow + (size_t)(s - 1) * words + (l >> 5) * 2);
+                m = ((w.x >> (l & 31)) & 1) | (((w.y >> (l & 31)) & 1) << 1);
+                if (m != 1) base = qv;
+            } else {
+                m = 0;
+                base = 0;
+            }
+            i -= (m & 1) ^ 1;            // diag or left consumes q
+            j -= ((m >> 1) & 1) ^ 1;     // diag or up consumes t
+            done = (i | j) == 0;
+        }
+        byte |= (unsigned)m << (2 * (k & 3));
+        if ((k & 3) == 3) {
+            moves[(size_t)(k >> 2) * B + b] = (uint8_t)byte;
+            byte = 0;
+        }
+        bases[(size_t)(s - 1) * B + b] = (int8_t)base;
+    }
+    if (S & 3) {
+        for (int f = S & 3; f < 4; ++f) byte |= 3u << (2 * f);
+        moves[(size_t)(S >> 2) * B + b] = (uint8_t)byte;
+    }
+}
+
 template <int C>
 static int ftt_tb_fwd_launch(const void* q, const void* t, const void* qlen,
                              const void* tlen, int B, int L, int end_bonus,
@@ -284,4 +363,31 @@ extern "C" int ftt_tb_bwd(const void* trace, const void* q, const void* ends,
                                           st);
     }
     return (int)cudaErrorInvalidValue;
+}
+
+// The block route: W any multiple of 32 up to 1024, L any.  ftt_tb_fwd_block
+// takes ftt_tb_fwd's arguments with trace [B, 2L, W/16] int32;
+// ftt_tb_bwd_block ftt_tb_bwd's, with moves [ceil(2L/4), B] uint8.
+extern "C" int ftt_tb_fwd_block(const void* q, const void* t,
+                                const void* qlen, const void* tlen, int B,
+                                int L, int W, int end_bonus, void* ends,
+                                void* trace, void* stream) {
+    if (W % 32 || W < 32 || W > 1024) return (int)cudaErrorInvalidValue;
+    const size_t smem = 3 * (size_t)(W + 4) * sizeof(int);
+    ftt_tb_fwd_block_kernel<<<B, W, smem, (cudaStream_t)stream>>>(
+        (const int8_t*)q, (const int8_t*)t, (const int*)qlen,
+        (const int*)tlen, B, L, W, end_bonus, (int*)ends, (unsigned*)trace);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int ftt_tb_bwd_block(const void* trace, const void* q,
+                                const void* ends, int B, int L, int W,
+                                void* moves, void* bases, void* stream) {
+    if (W % 32 || W < 32 || W > 1024) return (int)cudaErrorInvalidValue;
+    const int threads = FTT_TB_BWD_BLOCK_THREADS;
+    ftt_tb_bwd_block_kernel<<<(B + threads - 1) / threads, threads, 0,
+                              (cudaStream_t)stream>>>(
+        (const unsigned*)trace, (const int8_t*)q, (const int*)ends, B, L, W,
+        (uint8_t*)moves, (int8_t*)bases);
+    return (int)cudaGetLastError();
 }

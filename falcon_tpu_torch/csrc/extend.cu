@@ -66,7 +66,8 @@ __global__ void ftt_extend_block_kernel(const int8_t* __restrict__ q,
                                         const int* __restrict__ tlen, int B,
                                         int L, int W, int end_bonus,
                                         int* __restrict__ ends) {
-    ftt_band_dp(q, t, qlen, tlen, B, L, W, end_bonus, ends);
+    ftt_band_dp<false>(q, t, qlen, tlen, B, L, W, end_bonus, ends,
+                       nullptr);
 }
 
 extern "C" const char* ftt_error_string(int code) {

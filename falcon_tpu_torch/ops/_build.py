@@ -98,6 +98,10 @@ def lib():
         so.ftt_tb_fwd.restype = i
         so.ftt_tb_bwd.argtypes = [p, p, p, i, i, i, p, p, p]
         so.ftt_tb_bwd.restype = i
+        so.ftt_tb_fwd_block.argtypes = so.ftt_tb_fwd.argtypes
+        so.ftt_tb_fwd_block.restype = i
+        so.ftt_tb_bwd_block.argtypes = so.ftt_tb_bwd.argtypes
+        so.ftt_tb_bwd_block.restype = i
         so.ftt_tags.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                 ctypes.c_float, p]
         so.ftt_tags.restype = i
@@ -122,8 +126,8 @@ def check(code, what):
 def check_batch(q, qlen, t, tlen, W):
     """Validate one [B, L] batch for K1/K2: int8 q/t of one shape, int32
     [B] lengths, all contiguous on one device; W a multiple of 32 in
-    [32, 1024] (K1 takes all of them, align_cuda.kernel_for says with which
-    kernel; K2 narrows W further, align_tb_cuda.WIDTHS)."""
+    [32, 1024] (K1 and K2 take all of them; align_cuda.kernel_for and
+    align_tb_cuda.kernel_for say with which kernel)."""
     if q.dim() != 2 or t.shape != q.shape:
         raise ValueError("q and t must both be [B, L]; got %s and %s"
                          % (tuple(q.shape), tuple(t.shape)))

@@ -2,12 +2,14 @@
 
 Replaces falcon_tpu/ops/align_pallas.py extend_batch_pallas.  On a CUDA
 tensor it launches K1 or raises; on a CPU tensor it runs the plain twin
-ops.align_device.extend_batch.  LAUNCHES["extend"] counts kernel launches.
+ops.align_device.extend_batch.  LAUNCHES["extend"] counts kernel launches,
+BY_DEVICE the same launches by device ("cuda:0", ...).
 
 K1 is two kernels with one result, chosen by the band alone (kernel_for):
 the warp-resident sweep at the bands it is instantiated for (WARP_WIDTHS),
 the block-per-row sweep at every other band check_batch admits.
 """
+import collections
 import logging
 
 import torch
@@ -16,6 +18,7 @@ from . import _build
 from .align_device import extend_batch
 
 LAUNCHES = {"extend": 0}
+BY_DEVICE = collections.Counter()
 
 WARP_WIDTHS = (32, 64, 128, 256, 512)   # bands of the warp-resident sweep
 
@@ -65,4 +68,5 @@ def extend_batch_cuda(q, qlen, t, tlen, W=256, end_bonus=3):
                 B, L, W, end_bonus, ends.data_ptr(), _build.stream_of(q))
         _build.check(code, "K1 (%s, W=%d)" % (kernel, W))
     LAUNCHES["extend"] += 1
+    BY_DEVICE[str(q.device)] += 1
     return ends

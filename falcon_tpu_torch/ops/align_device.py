@@ -7,7 +7,8 @@ task gathers (`gather_pad2`, `gather_specs2_packed`: plain torch ops, as
 they were XLA ops in the reference), the host packers (`pack_flat_2bit`,
 `pack_tasks`) and the batching front end `DeviceExtender`, which runs
 every batch through the hand-written K1 kernel (ops.align_cuda) on the
-GPU, or through the twin when its device is the CPU.
+GPU, or through the twin when its device is the CPU; over a mesh of more
+than one device it shards every batch (parallel.mesh).
 
 The DP, shared with ops.align_tb: anti-diagonals s = i + j, a band of W
 lanes whose window offset o(s) = max(0, s//2 - W/2) tracks the main
@@ -254,13 +255,35 @@ class DeviceExtender:
     (offset, len, dir) slices of one flat code array that goes to the
     device once, 2-bit packed.  Both return an [n, 3] int64 array of
     per-task (i, j, d).  Every batch runs through K1 (ops.align_cuda);
-    on a CPU device the wrapper runs its plain twin."""
+    on a CPU device the wrapper runs its plain twin.
+
+    The mesh (parallel.mesh.make_mesh) is `devices` when given, else every
+    visible GPU when the device is CUDA, else the one CPU device.  With
+    more than one entry every batch is sharded over it, as falcon_tpu does
+    when it sees several devices (align_device.py:348-359, 417-443,
+    469-481, 516-536): run() pads each batch on the host and hands it to
+    a ShardedExtender, run_specs() replicates the packed codes on every
+    device once a call and runs sharded_specs_extend.  With one entry the
+    path is the single-device one."""
 
     # Padded task lengths: powers of two from 1024 (falcon_tpu LADDER).
     LADDER = tuple(1 << s for s in range(10, 19))   # 1024 .. 262144
 
-    def __init__(self, W=512, end_bonus=3, max_batch=128, device=None):
+    def __init__(self, W=512, end_bonus=3, max_batch=128, device=None,
+                 devices=None):
+        from ..parallel.mesh import ShardedExtender, make_mesh
         self.device = resolve_device(device)
+        if devices is not None:
+            self.mesh = make_mesh(devices=devices)
+        elif self.device.type == "cuda":
+            self.mesh = make_mesh()
+        else:
+            self.mesh = (self.device,)
+        self._sharded = None
+        if len(self.mesh) > 1:
+            self._sharded = ShardedExtender(self.mesh, W, end_bonus)
+            LOG.info("extender: batches sharded over %s",
+                     [str(d) for d in self.mesh])
         self.W = W
         self.end_bonus = end_bonus
         self.max_batch = max_batch
@@ -315,11 +338,19 @@ class DeviceExtender:
                 chunk = idxs[ofs:ofs + B]
                 cat, qo, ql, to_, tl = pack_tasks(tasks, chunk, len(chunk),
                                                   L)
-                qd, td = gather_pad2(self._to_dev(cat), self._to_dev(qo),
-                                     self._to_dev(ql), self._to_dev(to_),
-                                     self._to_dev(tl), L, 4, 5)
-                inflight.append((chunk, self._extend(
-                    qd, self._to_dev(ql), td, self._to_dev(tl))))
+                if self._sharded is not None:
+                    # the sharded path takes host planes: pad on the host
+                    q, t = gather_pad2(*map(torch.from_numpy, (
+                        cat, qo, ql, to_, tl)), L, 4, 5)
+                    inflight.append((chunk, self._sharded.launch(
+                        q, ql, t, tl)))
+                else:
+                    qd, td = gather_pad2(
+                        self._to_dev(cat), self._to_dev(qo),
+                        self._to_dev(ql), self._to_dev(to_),
+                        self._to_dev(tl), L, 4, 5)
+                    inflight.append((chunk, self._extend(
+                        qd, self._to_dev(ql), td, self._to_dev(tl))))
                 n_batches += 1
                 heartbeat_tick()
                 t_wait += self._drain(inflight, results, self.inflight_cap)
@@ -341,7 +372,13 @@ class DeviceExtender:
         q_len = np.minimum(q_len, cap).astype(np.int32)
         t_len = np.minimum(t_len, cap).astype(np.int32)
         Ls = self._bucket_ladder(np.maximum(np.maximum(q_len, t_len), 1))
-        words = self._to_dev(pack_flat_2bit(flat).astype(np.int64))
+        words = pack_flat_2bit(flat).astype(np.int64)
+        if self._sharded is not None:
+            # one copy of the packed codes to each device of the mesh
+            from ..parallel.mesh import replicate, sharded_specs_extend
+            words = replicate(torch.from_numpy(words), self.mesh)
+        else:
+            words = self._to_dev(words)
         specs = np.stack([q_off, q_len, q_dir, t_off, t_len, t_dir]) \
             .astype(np.int32)
         inflight = []
@@ -356,11 +393,16 @@ class DeviceExtender:
             self._account_cells(q_len[idxs], t_len[idxs])
             for ofs in range(0, len(idxs), B):
                 chunk = idxs[ofs:ofs + B]
-                sel = self._to_dev(specs[:, chunk])   # one H2D per batch
-                qd, td = gather_specs2_packed(words, *sel, L=L, fill_q=4,
-                                              fill_t=5)
-                inflight.append((chunk, self._extend(qd, sel[1], td,
-                                                     sel[4])))
+                if self._sharded is not None:
+                    inflight.append((chunk, sharded_specs_extend(
+                        self.mesh, words, specs[:, chunk], L, self.W,
+                        self.end_bonus)))
+                else:
+                    sel = self._to_dev(specs[:, chunk])  # one H2D a batch
+                    qd, td = gather_specs2_packed(words, *sel, L=L,
+                                                  fill_q=4, fill_t=5)
+                    inflight.append((chunk, self._extend(qd, sel[1], td,
+                                                         sel[4])))
                 n_batches += 1
                 heartbeat_tick()
                 t_wait += self._drain(inflight, results, self.inflight_cap)
@@ -371,7 +413,8 @@ class DeviceExtender:
         return results
 
     def _account_cells(self, qlen, tlen):
-        """Issued vs useful lane-steps of one bucket.  K1 sweeps each row
+        """Issued vs useful lane-steps of one bucket, each task counted
+        once whatever its shard.  K1 sweeps each row
         for its own qlen + tlen steps with all W lanes, so it issues
         W * (qlen + tlen) lane-steps (batch mates cost a row nothing,
         unlike the TPU kernel's 256-row tiles, falcon_tpu

@@ -1,23 +1,41 @@
 """Pipeline driver of the port: raw reads -> preads -> string graph ->
-contigs + GFA on one GPU (port of falcon_tpu/pipeline/driver.py).
+contigs + GFA on GPUs (port of falcon_tpu/pipeline/driver.py).
 
 Pipeline keeps falcon_tpu's phases, resume logic and artifact writers
 (_engine_params, _make_group, phase1, phase2 and the helpers are copies of
 falcon_tpu/pipeline/driver.py's) and differs where that driver reaches
 JAX:
 
-  __init__        no multi-host initialisation (single host), explicit
-                  device
-  _aligner        the port's make_device_aligner(W=256); no host fallback
-  _overlap_store  the single-host block-pair triangle, no all-gather
+  __init__        joins the torch.distributed group (gloo) when
+                  FTPU_COORDINATOR_ADDRESS is set
+                  (parallel.distributed.init_distributed); an explicit
+                  device; use_device= overrides the cfg
+  _aligner        the port's make_device_aligner(W=256), whose extender
+                  shards every batch over all visible GPUs
+                  (parallel.mesh); no host fallback
+  _overlap_store  this process's stripe of the block-pair triangle, then
+                  one all-gather of the table when there are several
+                  processes (parallel.distributed)
   phase0          consensus through the port's run_consensus_device
-                  (FTPU_CNS_DP=1: the device-DP path; its DP batches per
-                  T bucket go into timings as phase0_cns_dp_batches)
+                  (the device-DP path when FTPU_CNS_DP=1, or when it is
+                  unset and the run has several processes; its DP batches
+                  per T bucket go into timings as phase0_cns_dp_batches)
   run             FTPU_PROFILE=<dir> maps to torch.profiler; the device's
                   busy time and idle share over the run's total go into
                   timings.json (device_busy)
 
+Consensus and the graph are replicated: every process runs them whole on
+the gathered table and writes the same artifacts into its own out_dir.
+Under several processes the host consensus runner (use_device = false,
+--trim, or FTPU_CNS_DEVICE=0) must run with --n-core 0 in
+falcon_sense_option: it otherwise forks a worker pool, and a fork of a
+process that holds a gloo group can deadlock (falcon_tpu's rule,
+tests/test_multiprocess.py).  The device consensus uses threads only.
+
 Usage:  python -m falcon_tpu_torch.pipeline <cfg> [out_dir]
+        (several processes: the same command in each, with
+        FTPU_COORDINATOR_ADDRESS=<host:port> FTPU_NUM_PROCESSES=<n>
+        FTPU_PROCESS_ID=<0..n-1>)
 """
 import json
 import logging
@@ -39,7 +57,7 @@ from ..io import fasta, integrity, readstore
 from ..ops import native as native_ops
 from ..overlap import engine, filter as ofilter
 from ..overlap import table as otable
-from ..parallel.distributed import host_block_pairs
+from ..parallel import distributed
 from ..utils import system
 from ..utils.device import resolve_device
 from . import stats as stats_mod
@@ -60,10 +78,14 @@ def _resumable(path, what):
 
 
 class Pipeline:
-    def __init__(self, cfg_path, out_dir=".", device=None):
+    def __init__(self, cfg_path, out_dir=".", device=None, use_device=None):
+        if distributed.want_distributed():
+            distributed.init_distributed()
         self.device = resolve_device(device)
         self.cfg = config_mod.parse_cfg_file(cfg_path)
         self.p = config_mod.StageParams(self.cfg)
+        if use_device is not None:
+            self.p.use_device = use_device
         self.out_dir = os.path.abspath(out_dir)
         self.dir0 = os.path.join(self.out_dir, "0-rawreads")
         self.dir1 = os.path.join(self.out_dir, "1-preads_ovl")
@@ -98,15 +120,20 @@ class Pipeline:
         return engine.make_device_aligner(W=256, device=self.device)
 
     def _overlap_store(self, store, params, tag, ckpt_dir=None):
-        """All-vs-all overlap over the store's block-pair triangle on this
-        host; returns the symmetric columnar overlap table.  Pairs are
-        walked grouped by B block (its k-mer tables are built once) with
-        the A blocks snaked, per-pair checkpoints make the phase
-        resumable, and the host chain of pair n+1 runs under the device
-        alignment of pair n -- all as in falcon_tpu."""
+        """All-vs-all overlap over this process's stripe of the store's
+        block-pair triangle; returns the symmetric columnar overlap table,
+        gathered from every process when there are several (one raw-byte
+        all-gather; emit_symmetric's canonical sort makes it equal to a
+        single process's).  Pairs are walked grouped by B block (its k-mer
+        tables are built once) with the A blocks snaked, per-pair
+        checkpoints make the phase resumable, and the host chain of pair
+        n+1 runs under the device alignment of pair n -- all as in
+        falcon_tpu."""
         blocks = store.blocks or store.split_blocks()
         aligner = self._aligner()
-        pairs = sorted(host_block_pairs(len(blocks), 0, 1),
+        host_id, n_hosts = distributed.init_distributed()
+        pairs = sorted(distributed.host_block_pairs(len(blocks), host_id,
+                                                    n_hosts),
                        key=lambda ij: (ij[1], ij[0]))
         stripes = []
         for pr in pairs:
@@ -185,6 +212,8 @@ class Pipeline:
         occ = aligner.ext.occupancy() if aligner is not None else None
         if occ:
             self.timings["%s_occupancy" % tag] = round(occ, 4)
+        if n_hosts > 1:
+            tbl = distributed.allgather_table(tbl)
         return engine.emit_symmetric(tbl)
 
     @staticmethod

@@ -13,8 +13,10 @@ from falcon_tpu.ops.align_tb_pallas import align_tb_batch_pallas
 from falcon_tpu_torch.cns import device as tdev
 from falcon_tpu_torch.ops import align_tb as ttb
 from falcon_tpu_torch.ops.align_device import DeviceExtender, band_sweep
-from falcon_tpu_torch.ops.align_tb_cuda import (WIDTHS, align_tb_batch_cuda,
-                                                trace_row_bytes)
+from falcon_tpu_torch.ops import align_tb_cuda
+from falcon_tpu_torch.ops.align_tb_cuda import (align_tb_batch_cuda,
+                                                kernel_for, trace_row_bytes,
+                                                trace_shape)
 
 from tests.test_torch_align_device import _edge_rows, _pairs
 
@@ -26,8 +28,10 @@ def _port(q, qlen, t, tlen, W):
 
 
 @pytest.mark.parametrize("W,L,edge", [(64, 128, False), (64, 128, True),
-                                      (32, 256, False)])
+                                      (32, 256, False), (96, 256, True),
+                                      (512, 640, True)])
 def test_align_tb_batch_matches_jax(W, L, edge):
+    """W 96 and 512 are bands of the kernels' block route."""
     q, qlen, t, tlen = _pairs(8, L, err=0.15, seed=7)
     if edge:
         _edge_rows(q, qlen, t, tlen, seed=9)
@@ -148,19 +152,47 @@ def test_batch_for_fits_the_trace_budget(kind, monkeypatch):
 
 
 @pytest.mark.parametrize("W", [96, 192, 512])
-def test_device_cns_rejects_a_band_the_kernels_lack(W, monkeypatch):
-    """On a CUDA device DeviceCns refuses, when it is built, a band K2/K3
-    are not instantiated for, given as an argument or by FTPU_CNS_W; on the
-    CPU the twin takes it."""
+def test_device_cns_takes_every_band_the_kernels_take(W, monkeypatch):
+    """On a CUDA device DeviceCns takes a band of the kernels' block route,
+    given as an argument or by FTPU_CNS_W, as it takes the warp route's and
+    as the twin takes it on the CPU; it refuses, when it is built, a band
+    no route takes (not a multiple of 32, or above 1024)."""
     monkeypatch.setattr(tdev, "resolve_device",
                         lambda d=None: torch.device("cuda", 0))
-    with pytest.raises(ValueError, match="FTPU_CNS_W"):
-        tdev.DeviceCns(W=W, use_dp=False)
+    assert tdev.DeviceCns(W=W, use_dp=False).W == W
+    for bad in (80, 1056):
+        with pytest.raises(ValueError, match="FTPU_CNS_W"):
+            tdev.DeviceCns(W=bad, use_dp=False)
+        monkeypatch.setenv("FTPU_CNS_W", str(bad))
+        with pytest.raises(ValueError, match="FTPU_CNS_W"):
+            tdev.DeviceCns(use_dp=False)
     monkeypatch.setenv("FTPU_CNS_W", str(W))
-    with pytest.raises(ValueError, match="FTPU_CNS_W"):
-        tdev.DeviceCns(use_dp=False)
-    for ok in WIDTHS:
-        assert tdev.DeviceCns(W=ok, use_dp=False).W == ok
+    cns = tdev.DeviceCns(use_dp=False)
+    assert cns.W == W
+    # the launch at the largest ladder length stays inside the trace budget
+    L = DeviceExtender.LADDER[-1]
+    assert cns._batch_for(L) * trace_row_bytes(L, W) <= cns.moves_budget
     monkeypatch.setattr(tdev, "resolve_device",
                         lambda d=None: torch.device("cpu"))
     assert tdev.DeviceCns(use_dp=False).W == W
+
+
+def test_kernel_for_routes_every_band():
+    """K2/K3's route by band: the warp route at 32, 64, 128 and 256, the
+    block route at every other multiple of 32 up to 1024, a ValueError
+    elsewhere; both routes' traces hold two bits a cell."""
+    routes = {W: kernel_for(W) for W in range(32, 1025, 32)}
+    assert sorted(W for W, r in routes.items() if r == "warp") == \
+        [32, 64, 128, 256]
+    assert set(routes.values()) == {"warp", "block"}
+    assert routes[96] == routes[512] == routes[1024] == "block"
+    for W in (0, 16, 80, 1000, 1056, 2048):
+        with pytest.raises(ValueError):
+            kernel_for(W)
+    for W in routes:
+        shape = trace_shape(5, 1024, W)
+        assert shape[0] == 5
+        assert 4 * int(np.prod(shape)) == 5 * trace_row_bytes(1024, W)
+    assert trace_shape(5, 1024, 256) == (5, 1024, 32)
+    assert trace_shape(5, 1024, 96) == (5, 2048, 6)
+    assert align_tb_cuda.WARP_WIDTHS == (32, 64, 128, 256)

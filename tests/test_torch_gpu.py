@@ -48,9 +48,30 @@ def test_k1_matches_twin(rng, W, L, B):
 
 TB_SHAPES = [(32, 256, 40), (64, 512, 24), (128, 1024, 70),
              (256, 2048, 16), (256, 1024, 130)]
+# bands of the block route; L 250 and 251 are no multiple of 16, and 251
+# leaves a last packed byte half filled
+TB_BLOCK_SHAPES = [(96, 512, 24), (192, 1024, 20), (512, 1024, 12),
+                   (1024, 2048, 8), (160, 250, 30), (160, 251, 30)]
 
 
-@pytest.mark.parametrize("W,L,B", TB_SHAPES)
+def block_trace(planes, L):
+    """band_sweep's move planes [S, B, W] -> the block route's trace
+    [B, 2L, W/16] int32: per step and warp of 32 cells, a word of the moves'
+    low bits and a word of their high bits."""
+    S, B, W = planes.shape
+    m = planes.to(torch.int64).view(S, B, W // 32, 1, 32)
+    bits = torch.cat([m & 1, (m >> 1) & 1], 3) << torch.arange(
+        32, device=planes.device)
+    words = bits.sum(4)                                  # [S, B, W/32, 2]
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    trace = torch.zeros((B, 2 * L, W // 16), dtype=torch.int32,
+                        device=planes.device)
+    trace[:, :S] = words.reshape(S, B, W // 16).transpose(0, 1).to(
+        torch.int32)
+    return trace
+
+
+@pytest.mark.parametrize("W,L,B", TB_SHAPES + TB_BLOCK_SHAPES)
 def test_k2_k3_match_twin(rng, W, L, B):
     args = make_pairs(rng, B, L, W)
     got = align_tb_cuda.align_tb_batch_cuda(*args, W=W)
@@ -75,14 +96,17 @@ def test_k2_matches_band_sweep(rng, W, L, B):
     assert same and cells > 0
 
 
-@pytest.mark.parametrize("W,L,B", TB_SHAPES)
+@pytest.mark.parametrize("W,L,B", TB_SHAPES + TB_BLOCK_SHAPES)
 def test_k3_matches_walk_back(rng, W, L, B):
-    """K3 on the plain sweep's trace and ends."""
+    """K3 on the plain sweep's trace and ends, in its route's layout."""
     args = make_pairs(rng, B, L, W)
     p_ends, planes = band_sweep(*args, W, 3, keep_moves=True)
+    planes = planes.clamp(0, 2)        # rows' unswept steps: never read
+    pack = pack_trace if align_tb_cuda.kernel_for(W) == "warp" \
+        else block_trace
     n = align_tb_cuda.LAUNCHES["tb_bwd"]
     moves, bases = align_tb_cuda.tb_backward_cuda(
-        pack_trace(planes, L), p_ends, args[0], W)
+        pack(planes, L), p_ends, args[0], W)
     torch.cuda.synchronize()
     assert align_tb_cuda.LAUNCHES["tb_bwd"] == n + 1
     p_moves, p_bases = walk_back(args[0], p_ends, planes, W)
@@ -92,17 +116,20 @@ def test_k3_matches_walk_back(rng, W, L, B):
 
 def test_k2_k3_reject_what_they_do_not_take(rng):
     q, ql, t, tl = make_pairs(rng, 8, 256, 64)
-    with pytest.raises(ValueError):           # a band with no instantiation
-        align_tb_cuda.align_tb_batch_cuda(q, ql, t, tl, W=96)
-    with pytest.raises(ValueError):           # L not a multiple of 16
+    with pytest.raises(ValueError):           # a band no route takes
+        align_tb_cuda.align_tb_batch_cuda(q, ql, t, tl, W=80)
+    with pytest.raises(ValueError):           # warp route: L % 16 != 0
         align_tb_cuda.align_tb_batch_cuda(
             q[:, :250].contiguous(), ql.clamp_max(250),
             t[:, :250].contiguous(), tl.clamp_max(250), W=64)
     ends, trace = align_tb_cuda.tb_forward_cuda(q, ql, t, tl, 64, 3)
     with pytest.raises(ValueError):           # q on the CPU beside the trace
         align_tb_cuda.tb_backward_cuda(trace, ends, q.cpu(), 64)
+    with pytest.raises(ValueError):           # the other route's trace
+        align_tb_cuda.tb_backward_cuda(trace, ends, q, 96)
     with pytest.raises(ValueError):           # refused before any launch
-        DeviceCns(W=96, device="cuda")
+        DeviceCns(W=1056, device="cuda")
+    assert DeviceCns(W=96, device="cuda").W == 96
 
 
 def test_k1_rejects_cpu_only_inputs(rng):

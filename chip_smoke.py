@@ -22,8 +22,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   sharded_k1  the extender's multi-device path: sharded_specs_extend over
             make_mesh() (over cuda:0 twice on a one-card machine) at
             (B, L) = (16384, 1024) and (4096, 8192), bit-equal to one K1
-            launch on the same packed words and specs, both timed; logs
-            the shard sizes and the K1 launches per device
+            launch on the same packed words and specs, both timed; then
+            the entry point, DeviceExtender.run_specs over that mesh,
+            bit-equal to DeviceExtender.run_specs on cuda:0 alone at the
+            same specs; logs the shard sizes and the K1 launches per
+            device
   k2        K2 (forward DP, two-bit trace) against band_sweep on the cells
             each row swept, K3 (walk) against walk_back on the twin's
             trace, and the pair against align_tb_batch, all bit-equal, at
@@ -43,6 +46,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   pipeline_dp  the same on the same genome with FTPU_CNS_DP=1, the
             device-DP consensus: every kernel K1-K6 must launch, the same
             bars; its phase walls beside the host-MSA run's
+  pipeline_mesh  on a host with several GPUs (pipeline_dp then cut K1's
+            batches over all of them), pipeline_dp again on cuda:0 alone,
+            every artifact byte-equal; skipped on one GPU
   pipeline_mp  two processes of the Pipeline, children of this script
             (--pipeline-child), on the same inputs and the same card,
             joined by FTPU_COORDINATOR_ADDRESS on 127.0.0.1 (gloo) with
@@ -584,7 +590,9 @@ def phase_sharded_k1(rng, card):
     of a one-card machine) against one K1 launch on the same packed words
     and specs, bit-equal, at SHARDED_K1; both timed (gather + K1, the
     sharded call with its per-shard copy of the specs).  Logs the shard
-    sizes and the K1 launches per device of one sharded call."""
+    sizes and the K1 launches per device of one sharded call.  Then
+    DeviceExtender.run_specs over the same mesh against an extender on
+    cuda:0 alone, bit-equal, with the K1 launches of each by device."""
     from falcon_tpu_torch.ops import align_cuda
     from falcon_tpu_torch.ops.align_device import (gather_specs2_packed,
                                                    pack_flat_2bit)
@@ -627,6 +635,40 @@ def phase_sharded_k1(rng, card):
                              % (per_dev, shards))
         del ref, got, reps, sel_d, words
         torch.cuda.empty_cache()
+    # the port's entry point over the same mesh: DeviceExtender.run_specs,
+    # the K1 path of every pipeline on a host with several GPUs, against
+    # an extender on cuda:0 alone, at the same specs
+    from falcon_tpu_torch.ops.align_device import DeviceExtender
+    for B, L in SHARDED_K1:
+        flat, sel = spec_batch(*make_pairs(rng, B, L, W_MAIN))
+        out, per_dev, wall = {}, {}, {}
+        for name, devices in (("one", ("cuda:0",)), ("mesh", mesh)):
+            ext = DeviceExtender(W=W_MAIN, max_batch=512, device="cuda",
+                                 devices=devices)
+            before = dict(align_cuda.BY_DEVICE)
+            t0 = time.time()
+            out[name] = ext.run_specs(flat, *sel)
+            torch.cuda.synchronize()
+            wall[name] = time.time() - t0
+            per_dev[name] = {d: n - before.get(d, 0)
+                             for d, n in align_cuda.BY_DEVICE.items()
+                             if n != before.get(d, 0)}
+        n_one = sum(per_dev["one"].values())
+        n_mesh = sum(per_dev["mesh"].values())
+        equal = bool(np.array_equal(out["mesh"], out["one"]))
+        log(phase="sharded_k1_extender", card=card, B=B, L=L, W=W_MAIN,
+            mesh=[str(d) for d in mesh], k1_launches_per_device=per_dev,
+            bit_equal=equal, one_device_s=wall["one"],
+            mesh_s=wall["mesh"])
+        if not equal:
+            raise SystemExit("DeviceExtender over %s differs from one "
+                             "device at B=%d L=%d" % (list(mesh), B, L))
+        # every batch launches once on one device and once a non-empty
+        # shard on the mesh; every device of the mesh takes a shard
+        if not (n_one <= n_mesh <= len(mesh) * n_one) or \
+                len(per_dev["mesh"]) != len(set(mesh)):
+            raise SystemExit("DeviceExtender over %s: K1 launches %s "
+                             % (list(mesh), per_dev))
 
 
 def counters():
@@ -673,14 +715,17 @@ def write_run(args, workdir, name):
     return genome
 
 
-def phase_pipeline(args, workdir, dp):
+def phase_pipeline(args, workdir, dp, device="cuda"):
     """The port's Pipeline on the simulated genome, consensus through the
     device-DP path (dp) or the host-MSA path; returns (launches by kernel,
     timings, artifact digests).  The DP run must launch every kernel, the
-    host-MSA run K1-K3 and none of K4-K6."""
+    host-MSA run K1-K3 and none of K4-K6.  With the bare device "cuda"
+    the extender cuts K1's batches over every visible GPU; a named one
+    ("cuda:0") keeps them on that card."""
     from falcon_tpu_torch.pipeline.driver import Pipeline
     from falcon_tpu_torch.utils import simcheck
-    name = "pipeline_dp" if dp else "pipeline"
+    name = ("pipeline_dp" if dp else "pipeline") + \
+        ("" if device == "cuda" else "_one_card")
     genome = write_run(args, workdir, name)
     cnt = counters()
     for d, key in cnt.values():
@@ -691,7 +736,7 @@ def phase_pipeline(args, workdir, dp):
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
-        pipe = Pipeline("fc_run.cfg", workdir, device="cuda")
+        pipe = Pipeline("fc_run.cfg", workdir, device=device)
         p_ctg = pipe.run()
         torch.cuda.synchronize()
     finally:
@@ -722,6 +767,30 @@ def phase_pipeline(args, workdir, dp):
         raise SystemExit("%s: assembly below bar: recovery %.4f identity %s"
                          % (name, score["recovery"], score["mean_identity"]))
     return launches, pipe.timings, artifact_digests(workdir)
+
+
+def phase_pipeline_mesh(args, card, dp_t, dp_digests):
+    """On a host with several GPUs the DP run above cut K1's batches over
+    all of them: the same run again on cuda:0 alone, every MP_ARTIFACTS
+    file byte-equal.  Skipped, and logged so, on one GPU."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(phase="pipeline_mesh", card=card, gpus=n,
+            skipped="one GPU: pipeline_dp ran on a one-entry mesh")
+        return
+    with tempfile.TemporaryDirectory() as d:
+        _, one_t, one_digests = phase_pipeline(args, d, dp=True,
+                                               device="cuda:0")
+    same = {k: one_digests[k] == dp_digests[k] for k in MP_ARTIFACTS}
+    log(phase="pipeline_mesh", card=card, gpus=n, artifacts_equal=same,
+        total_s={"every_gpu": dp_t["total"], "cuda:0": one_t["total"]},
+        overlap_s={"every_gpu": [dp_t["phase0_overlap"],
+                                 dp_t["phase1_overlap"]],
+                   "cuda:0": [one_t["phase0_overlap"],
+                              one_t["phase1_overlap"]]})
+    if not all(same.values()):
+        raise SystemExit("the DP pipeline over %d GPUs differs from cuda:0 "
+                         "alone: %s" % (n, same))
 
 
 MP_PROCS = 2
@@ -814,10 +883,10 @@ def pipeline_child(workdir, out_dir):
         d[key] = 0
     os.chdir(workdir)
     t0 = time.time()
-    pipe = Pipeline("fc_run.cfg", out_dir, device="cuda")
+    pipe = Pipeline("fc_run.cfg", out_dir, device="cuda:0")
     import torch.distributed as dist
     rank = dist.get_rank()
-    use_dp = DeviceCns(device="cuda").use_dp
+    use_dp = DeviceCns(device="cuda:0").use_dp
     pipe.run()
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -1057,6 +1126,7 @@ def run_phases(args, rng, card, clock):
         launches, host_t, _ = phase_pipeline(args, d, dp=False)
     with tempfile.TemporaryDirectory() as d:
         launches_dp, dp_t, dp_digests = phase_pipeline(args, d, dp=True)
+    phase_pipeline_mesh(args, card, dp_t, dp_digests)
     with tempfile.TemporaryDirectory() as d:
         children = phase_pipeline_mp(args, d, card, dp_digests)
     phases = ("phase0_masking", "phase0_overlap", "phase0_consensus",

@@ -7,8 +7,8 @@ task gathers (`gather_pad2`, `gather_specs2_packed`: plain torch ops, as
 they were XLA ops in the reference), the host packers (`pack_flat_2bit`,
 `pack_tasks`) and the batching front end `DeviceExtender`, which runs
 every batch through the hand-written K1 kernel (ops.align_cuda) on the
-GPU, or through the twin when its device is the CPU; over a mesh of more
-than one device it shards every batch (parallel.mesh).
+GPU, or through the twin when its device is the CPU; every batch is cut
+over the extender's mesh of one or more devices (parallel.mesh).
 
 The DP, shared with ops.align_tb: anti-diagonals s = i + j, a band of W
 lanes whose window offset o(s) = max(0, s//2 - W/2) tracks the main
@@ -26,7 +26,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import resolve_device
 from ..utils.system import heartbeat_tick
 
 LOG = logging.getLogger(__name__)
@@ -257,31 +256,24 @@ class DeviceExtender:
     per-task (i, j, d).  Every batch runs through K1 (ops.align_cuda);
     on a CPU device the wrapper runs its plain twin.
 
-    The mesh (parallel.mesh.make_mesh) is `devices` when given, else every
-    visible GPU when the device is CUDA, else the one CPU device.  With
-    more than one entry every batch is sharded over it, as falcon_tpu does
-    when it sees several devices (align_device.py:348-359, 417-443,
-    469-481, 516-536): run() pads each batch on the host and hands it to
-    a ShardedExtender, run_specs() replicates the packed codes on every
-    device once a call and runs sharded_specs_extend.  With one entry the
-    path is the single-device one."""
+    Every batch is cut over the extender's mesh (parallel.mesh), as
+    falcon_tpu shards it when it sees several devices (align_device.py:
+    348-359, 417-443, 469-481, 516-536): run() packs each shard's tasks on
+    the host and pads them on the shard's device (sharded_tasks_extend),
+    run_specs() copies the packed codes to each device of the mesh once a
+    call (replicate) and runs sharded_specs_extend.  The mesh is `devices`
+    when given, else parallel.mesh.extender_mesh(device): every visible
+    GPU when CUDA was asked for without an index, else the one device.  A
+    mesh of one entry is one gather and one K1 launch a batch."""
 
     # Padded task lengths: powers of two from 1024 (falcon_tpu LADDER).
     LADDER = tuple(1 << s for s in range(10, 19))   # 1024 .. 262144
 
     def __init__(self, W=512, end_bonus=3, max_batch=128, device=None,
                  devices=None):
-        from ..parallel.mesh import ShardedExtender, make_mesh
-        self.device = resolve_device(device)
-        if devices is not None:
-            self.mesh = make_mesh(devices=devices)
-        elif self.device.type == "cuda":
-            self.mesh = make_mesh()
-        else:
-            self.mesh = (self.device,)
-        self._sharded = None
+        from ..parallel.mesh import extender_mesh
+        self.mesh = extender_mesh(device, devices)
         if len(self.mesh) > 1:
-            self._sharded = ShardedExtender(self.mesh, W, end_bonus)
             LOG.info("extender: batches sharded over %s",
                      [str(d) for d in self.mesh])
         self.W = W
@@ -294,11 +286,6 @@ class DeviceExtender:
         self.cells_issued = 0
         self.cells_useful = 0
 
-    def _extend(self, q, qlen, t, tlen):
-        from .align_cuda import extend_batch_cuda
-        return extend_batch_cuda(q, qlen, t, tlen, W=self.W,
-                                 end_bonus=self.end_bonus)
-
     def _drain(self, inflight, results, keep):
         """Copy back all but the newest `keep` in-flight batches; returns
         the seconds spent waiting."""
@@ -308,11 +295,9 @@ class DeviceExtender:
             results[chunk] = out.cpu().numpy().T[:len(chunk)]
         return time.time() - t0
 
-    def _to_dev(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def run(self, tasks):
         """tasks: list of (q_codes uint8, t_codes uint8)."""
+        from ..parallel.mesh import sharded_tasks_extend
         results = np.zeros((len(tasks), 3), np.int64)
         if not tasks:
             return results
@@ -336,21 +321,8 @@ class DeviceExtender:
             B = self._batch_for(L)
             for ofs in range(0, len(idxs), B):
                 chunk = idxs[ofs:ofs + B]
-                cat, qo, ql, to_, tl = pack_tasks(tasks, chunk, len(chunk),
-                                                  L)
-                if self._sharded is not None:
-                    # the sharded path takes host planes: pad on the host
-                    q, t = gather_pad2(*map(torch.from_numpy, (
-                        cat, qo, ql, to_, tl)), L, 4, 5)
-                    inflight.append((chunk, self._sharded.launch(
-                        q, ql, t, tl)))
-                else:
-                    qd, td = gather_pad2(
-                        self._to_dev(cat), self._to_dev(qo),
-                        self._to_dev(ql), self._to_dev(to_),
-                        self._to_dev(tl), L, 4, 5)
-                    inflight.append((chunk, self._extend(
-                        qd, self._to_dev(ql), td, self._to_dev(tl))))
+                inflight.append((chunk, sharded_tasks_extend(
+                    self.mesh, tasks, chunk, L, self.W, self.end_bonus)))
                 n_batches += 1
                 heartbeat_tick()
                 t_wait += self._drain(inflight, results, self.inflight_cap)
@@ -362,7 +334,9 @@ class DeviceExtender:
 
     def run_specs(self, flat, q_off, q_len, q_dir, t_off, t_len, t_dir):
         """Every task row is an (offset, len, dir) slice of `flat` (uint8
-        codes), which goes to the device once, 2-bit packed."""
+        codes), which goes to each device of the mesh once, 2-bit
+        packed."""
+        from ..parallel.mesh import replicate, sharded_specs_extend
         n = len(q_off)
         results = np.zeros((n, 3), np.int64)
         if n == 0:
@@ -372,13 +346,8 @@ class DeviceExtender:
         q_len = np.minimum(q_len, cap).astype(np.int32)
         t_len = np.minimum(t_len, cap).astype(np.int32)
         Ls = self._bucket_ladder(np.maximum(np.maximum(q_len, t_len), 1))
-        words = pack_flat_2bit(flat).astype(np.int64)
-        if self._sharded is not None:
-            # one copy of the packed codes to each device of the mesh
-            from ..parallel.mesh import replicate, sharded_specs_extend
-            words = replicate(torch.from_numpy(words), self.mesh)
-        else:
-            words = self._to_dev(words)
+        words = replicate(torch.from_numpy(
+            pack_flat_2bit(flat).astype(np.int64)), self.mesh)
         specs = np.stack([q_off, q_len, q_dir, t_off, t_len, t_dir]) \
             .astype(np.int32)
         inflight = []
@@ -393,16 +362,10 @@ class DeviceExtender:
             self._account_cells(q_len[idxs], t_len[idxs])
             for ofs in range(0, len(idxs), B):
                 chunk = idxs[ofs:ofs + B]
-                if self._sharded is not None:
-                    inflight.append((chunk, sharded_specs_extend(
-                        self.mesh, words, specs[:, chunk], L, self.W,
-                        self.end_bonus)))
-                else:
-                    sel = self._to_dev(specs[:, chunk])  # one H2D a batch
-                    qd, td = gather_specs2_packed(words, *sel, L=L,
-                                                  fill_q=4, fill_t=5)
-                    inflight.append((chunk, self._extend(qd, sel[1], td,
-                                                         sel[4])))
+                # each shard's specs go to its device in one copy
+                inflight.append((chunk, sharded_specs_extend(
+                    self.mesh, words, specs[:, chunk], L, self.W,
+                    self.end_bonus)))
                 n_batches += 1
                 heartbeat_tick()
                 t_wait += self._drain(inflight, results, self.inflight_cap)

@@ -14,13 +14,21 @@ multiple of (256 x devices) as the Pallas kernel's did
 (falcon_tpu/ops/align_device.py:516-520): B rows are split as evenly as
 possible (shard_bounds), and a mesh entry whose shard is empty launches
 nothing.  A mesh may name one device more than once (two shards on one
-card), and on CPU devices every shard runs K1's plain twin.
+card), and on CPU devices every shard runs K1's plain twin.  A mesh of
+one entry is the single-device path: one gather and one K1 launch a batch.
+
+The extender's default mesh (extender_mesh) is every visible GPU only when
+the caller asked for CUDA without naming a device; a named device
+(cuda:1, FTPU_TORCH_DEVICE=cuda:1) is a mesh of that device alone.
 """
+import os
+
 import numpy as np
 import torch
 
 from ..ops.align_cuda import extend_batch_cuda
-from ..ops.align_device import gather_specs2_packed
+from ..ops.align_device import gather_pad2, gather_specs2_packed, pack_tasks
+from ..utils.device import resolve_device
 
 
 def make_mesh(n_devices=None, devices=None):
@@ -41,6 +49,21 @@ def make_mesh(n_devices=None, devices=None):
     if not devs:
         raise ValueError("make_mesh: no devices")
     return devs
+
+
+def extender_mesh(device=None, devices=None):
+    """The mesh a DeviceExtender shards over: make_mesh(devices=devices)
+    when devices is given; else every visible GPU when the request
+    (device, else FTPU_TORCH_DEVICE, else "cuda") is CUDA with no index;
+    else the one device it resolves to (utils.device.resolve_device)."""
+    if devices is not None:
+        return make_mesh(devices=devices)
+    dev = resolve_device(device)
+    req = device if device is not None else \
+        os.environ.get("FTPU_TORCH_DEVICE", "cuda")
+    if dev.type == "cuda" and torch.device(req).index is None:
+        return make_mesh()
+    return (dev,)
 
 
 def _indexed(dev):
@@ -81,6 +104,8 @@ def _gather(parts, mesh, B):
     """Shard results [3, b_k] concatenated in shard order on mesh[0]."""
     if not parts:
         return torch.empty((3, B), dtype=torch.int32, device=mesh[0])
+    if len(parts) == 1:
+        return parts[0].to(mesh[0])
     return torch.cat([p.to(mesh[0]) for p in parts], 1)
 
 
@@ -106,6 +131,28 @@ def sharded_specs_extend(mesh, words, sel, L, W, end_bonus):
         s = _on(sel[:, lo:hi], dev, torch.int32)
         q, t = gather_specs2_packed(reps[dev], *s, L=L, fill_q=4, fill_t=5)
         parts.append(extend_batch_cuda(q, s[1], t, s[4], W=W,
+                                       end_bonus=end_bonus))
+    return _gather(parts, mesh, B)
+
+
+def sharded_tasks_extend(mesh, tasks, chunk, L, W, end_bonus):
+    """Run one batch of (q_codes, t_codes) tasks over the mesh (falcon_tpu's
+    DeviceExtender.run over its mesh).  The rows `chunk` (indices into
+    tasks) are cut into contiguous shards; each shard's codes are packed on
+    the host into one flat buffer (ops.align_device.pack_tasks), copied to
+    its device, padded there to [b, L] planes (gather_pad2) and run through
+    K1.  Every shard is queued before any is waited on.  Returns
+    [3, len(chunk)] int32 (i, j, d) on mesh[0], not waited on."""
+    B = len(chunk)
+    parts = []
+    for (lo, hi), dev in zip(shard_bounds(B, len(mesh)), mesh):
+        if hi == lo:
+            continue
+        cat, qo, ql, to, tl = pack_tasks(tasks, chunk[lo:hi], hi - lo, L)
+        cat = _on(cat, dev, torch.int8)
+        qo, ql, to, tl = (_on(x, dev, torch.int32) for x in (qo, ql, to, tl))
+        q, t = gather_pad2(cat, qo, ql, to, tl, L, 4, 5)
+        parts.append(extend_batch_cuda(q, ql, t, tl, W=W,
                                        end_bonus=end_bonus))
     return _gather(parts, mesh, B)
 

@@ -11,8 +11,9 @@ JAX:
                   (parallel.distributed.init_distributed); an explicit
                   device; use_device= overrides the cfg
   _aligner        the port's make_device_aligner(W=256), whose extender
-                  shards every batch over all visible GPUs
-                  (parallel.mesh); no host fallback
+                  shards every batch over all visible GPUs when the
+                  device is a bare "cuda", else runs on the named device
+                  (parallel.mesh.extender_mesh); no host fallback
   _overlap_store  this process's stripe of the block-pair triangle, then
                   one all-gather of the table when there are several
                   processes (parallel.distributed)
@@ -82,6 +83,8 @@ class Pipeline:
         if distributed.want_distributed():
             distributed.init_distributed()
         self.device = resolve_device(device)
+        # as asked: a bare "cuda" lets the extender take every GPU
+        self.device_request = device
         self.cfg = config_mod.parse_cfg_file(cfg_path)
         self.p = config_mod.StageParams(self.cfg)
         if use_device is not None:
@@ -117,7 +120,8 @@ class Pipeline:
             return None
         # W is the extension DP's band (drift tolerance W/2), not the
         # greedy band_tolerance
-        return engine.make_device_aligner(W=256, device=self.device)
+        return engine.make_device_aligner(W=256,
+                                          device=self.device_request)
 
     def _overlap_store(self, store, params, tag, ckpt_dir=None):
         """All-vs-all overlap over this process's stripe of the store's

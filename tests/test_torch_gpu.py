@@ -11,11 +11,12 @@ import pytest
 import torch
 
 from chip_smoke import (adversarial_counts, dp_batch, ladder_walk,
-                        make_pairs, swept_cells_equal)
+                        make_pairs, spec_batch, swept_cells_equal)
 from falcon_tpu_torch.cns.device import DeviceCns
 from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp
 from falcon_tpu_torch.ops import cns_dp_cuda as dpk
-from falcon_tpu_torch.ops.align_device import band_sweep, extend_batch
+from falcon_tpu_torch.ops.align_device import (DeviceExtender, band_sweep,
+                                               extend_batch)
 from falcon_tpu_torch.ops.align_tb import (align_tb_batch, pack_moves,
                                            pack_trace, unpack_trace,
                                            walk_back)
@@ -44,6 +45,24 @@ def test_k1_matches_twin(rng, W, L, B):
     torch.cuda.synchronize()
     assert align_cuda.LAUNCHES["extend"] == n + 1
     assert torch.equal(got, extend_batch(*args, W=W))
+
+
+@pytest.mark.parametrize("B,L", [(300, 1024), (7, 2048)])
+def test_device_extender_over_two_shards_matches_one_device(rng, B, L):
+    """DeviceExtender.run_specs and run over (cuda:0, cuda:0), the mesh a
+    one-card machine can give, against cuda:0 alone and the CPU twin."""
+    flat, sel = spec_batch(*make_pairs(rng, B, L, 256))
+    exts = [DeviceExtender(W=256, device="cuda", devices=d)
+            for d in (("cuda:0",), ("cuda:0", "cuda:0"), ("cpu",))]
+    n = align_cuda.LAUNCHES["extend"]
+    one, two, cpu = (e.run_specs(flat, *sel) for e in exts)
+    assert align_cuda.LAUNCHES["extend"] > n
+    np.testing.assert_array_equal(two, one)
+    np.testing.assert_array_equal(one, cpu)
+    tasks = [(flat[q0:q0 + qn], flat[t0:t0 + tn])
+             for q0, qn, d, t0, tn, _ in sel.T if d == 1]
+    one, two = (e.run(tasks) for e in exts[:2])
+    np.testing.assert_array_equal(two, one)
 
 
 TB_SHAPES = [(32, 256, 40), (64, 512, 24), (128, 1024, 70),

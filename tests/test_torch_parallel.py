@@ -3,6 +3,8 @@ against falcon_tpu.parallel.mesh on the CPU: the port's mesh of three CPU
 devices, falcon_tpu's virtual 8-device CPU mesh (tests/conftest.py), the
 same inputs, bit-equal (i, j, d); and DeviceExtender over a mesh against
 DeviceExtender on one device."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,3 +126,36 @@ def test_device_extender_over_a_mesh_matches_one_device():
     # and falcon_tpu's extender (on its eight-device mesh) on the same tasks
     jref = jad.DeviceExtender(W=128, use_pallas=False).run(tasks)
     np.testing.assert_array_equal(one.run(tasks), np.asarray(jref))
+
+
+FAKE_GPUS = tuple(torch.device("cuda", k) for k in range(3))
+
+
+@pytest.mark.parametrize("device,env,want", [
+    (None, None, FAKE_GPUS), ("cuda", None, FAKE_GPUS),
+    (None, "cuda", FAKE_GPUS), ("cuda:1", None, FAKE_GPUS[1:2]),
+    (torch.device("cuda", 1), None, FAKE_GPUS[1:2]),
+    (None, "cuda:2", FAKE_GPUS[2:]), ("cpu", "cuda", (torch.device("cpu"),)),
+])
+def test_extender_mesh_takes_every_gpu_only_when_none_is_named(
+        device, env, want, monkeypatch):
+    """On a (faked) three-GPU host the extender shards over every GPU only
+    when CUDA was asked for without an index; a named device, by argument
+    or FTPU_TORCH_DEVICE, is a mesh of that device alone; devices= wins."""
+    def resolve(d=None):
+        d = torch.device(d if d is not None else
+                         os.environ.get("FTPU_TORCH_DEVICE", "cuda"))
+        return torch.device("cuda", d.index or 0) if d.type == "cuda" else d
+
+    real = tmesh.make_mesh
+    monkeypatch.setattr(tmesh, "resolve_device", resolve)
+    monkeypatch.setattr(tmesh, "make_mesh", lambda n_devices=None,
+                        devices=None: FAKE_GPUS if devices is None
+                        else real(n_devices, devices))
+    if env is None:
+        monkeypatch.delenv("FTPU_TORCH_DEVICE", raising=False)
+    else:
+        monkeypatch.setenv("FTPU_TORCH_DEVICE", env)
+    assert DeviceExtender(W=128, device=device).mesh == want
+    assert DeviceExtender(W=128, device=device, devices=CPU3).mesh == \
+        (torch.device("cpu"),) * 3

@@ -50,20 +50,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
             batches over all of them), pipeline_dp again on cuda:0 alone,
             every artifact byte-equal; skipped on one GPU
   pipeline_mp  two processes of the Pipeline, children of this script
-            (--pipeline-child), on the same inputs and the same card,
+            (--pipeline-child), on the same inputs with no device named,
             joined by FTPU_COORDINATOR_ADDRESS on 127.0.0.1 (gloo) with
-            FTPU_CNS_DP unset: each must report the DP consensus on by
-            default, launch K1 and K4-K6 and load no jax / falcon_tpu
-            module; every artifact tests/test_multiprocess.py compares
-            must be byte-equal between them and to pipeline_dp's; their
+            FTPU_CNS_DP unset: each logs its card (cuda:rank % cards) and
+            must report the DP consensus on by default, an extender mesh
+            of its card alone, launch K1 and K4-K6 and load no jax /
+            falcon_tpu module; on several cards no two may share one;
+            every artifact tests/test_multiprocess.py compares must be
+            byte-equal between them and to pipeline_dp's; their
             walls and phase splits beside the one-process runs.  Both are
             killed after 420 s
   dp_kernels  K4 (tags), K5 (consensus scan) and K6 (backtrack walk)
             against their plain twins on the card, bit-equal, at the
             smallest and largest T bucket the DP pipeline ran, with G from
-            DeviceCns._dp_group_cap; then each timed (K5 with its clocks
-            per column and the mean highest level in use); and K5 on
-            adversarial counts (adversarial_counts) at D = 3, 14 and 16
+            DeviceCns._dp_group_cap, K6 with one group on the 2T-code
+            ladder and one whose window boundaries fall on stay steps;
+            then each timed (K5 with its clocks per column and the mean
+            highest level in use, K6 with its clocks per step, K4 with
+            its launch shape); and K5 on adversarial counts
+            (adversarial_counts) at D = 3, 14 and 16
 
 Every timing line carries the kernel's bound: the larger of its bytes
 (each input once, each output once) over 3.35 TB/s and its int32 operations
@@ -806,12 +811,15 @@ def free_port():
 
 def phase_pipeline_mp(args, workdir, card, dp_digests):
     """MP_PROCS processes of the port's Pipeline on the same simulated
-    inputs, each a child of this script (--pipeline-child), all on
-    cuda:0, joined through FTPU_COORDINATOR_ADDRESS on 127.0.0.1 with
-    FTPU_CNS_DP unset.  Each child must report use_dp on, launch K1 and
-    K4-K6, load no jax / falcon_tpu module, and write every MP_ARTIFACTS
-    file byte-equal to the other's and to the single-process DP run's
-    (dp_digests).  Both are killed when MP_TIMEOUT_S is up.  Returns the
+    inputs, each a child of this script (--pipeline-child), joined through
+    FTPU_COORDINATOR_ADDRESS on 127.0.0.1 with FTPU_CNS_DP unset and no
+    device named, so that each takes its own card (cuda:rank % cards; all
+    cuda:0 on a one-card host).  Each child must report use_dp on, its
+    card and its extender's mesh (that card alone), launch K1 and K4-K6,
+    load no jax / falcon_tpu module, and write every MP_ARTIFACTS file
+    byte-equal to the other's and to the single-process DP run's
+    (dp_digests); on a host with more than one card no two children may
+    share one.  Both are killed when MP_TIMEOUT_S is up.  Returns the
     children's reports."""
     write_run(args, workdir, "pipeline_mp")
     port = free_port()
@@ -820,7 +828,7 @@ def phase_pipeline_mp(args, workdir, card, dp_digests):
     try:
         for rank in range(MP_PROCS):
             env = dict(os.environ)
-            for key in ("FTPU_CNS_DP", "FTPU_PROFILE"):
+            for key in ("FTPU_CNS_DP", "FTPU_PROFILE", "FTPU_TORCH_DEVICE"):
                 env.pop(key, None)
             env.update(FTPU_COORDINATOR_ADDRESS="127.0.0.1:%d" % port,
                        FTPU_NUM_PROCESSES=str(MP_PROCS),
@@ -859,13 +867,20 @@ def phase_pipeline_mp(args, workdir, card, dp_digests):
     same = {rel: all(d[rel] == dp_digests[rel] for d in digests)
             for rel in MP_ARTIFACTS}
     log(phase="pipeline_mp", card=card, processes=MP_PROCS, wall_s=wall,
+        gpus=torch.cuda.device_count(),
+        child_devices=[r["device"] for r in reports],
         artifacts_equal_to_pipeline_dp=same, children=reports)
     bad = [r["rank"] for r in reports
-           if not r["use_dp"] or r["loaded"] or
+           if not r["use_dp"] or r["loaded"] or r["mesh"] != [r["device"]] or
            min(r["launches"][k] for k in ("K1", "K4", "K5", "K6")) < 1]
     if bad or not all(same.values()):
-        raise SystemExit("pipeline_mp: children %s failed (use_dp, launches"
-                         " or imports), artifacts equal %s" % (bad, same))
+        raise SystemExit("pipeline_mp: children %s failed (use_dp, mesh, "
+                         "launches or imports), artifacts equal %s"
+                         % (bad, same))
+    cards = [r["device"] for r in reports]
+    if torch.cuda.device_count() > 1 and len(set(cards)) < MP_PROCS:
+        raise SystemExit("pipeline_mp: on %d cards the children share one: "
+                         "%s" % (torch.cuda.device_count(), cards))
     return reports
 
 
@@ -883,10 +898,10 @@ def pipeline_child(workdir, out_dir):
         d[key] = 0
     os.chdir(workdir)
     t0 = time.time()
-    pipe = Pipeline("fc_run.cfg", out_dir, device="cuda:0")
+    pipe = Pipeline("fc_run.cfg", out_dir)   # no device named
     import torch.distributed as dist
     rank = dist.get_rank()
-    use_dp = DeviceCns(device="cuda:0").use_dp
+    use_dp = DeviceCns().use_dp
     pipe.run()
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -894,6 +909,7 @@ def pipeline_child(workdir, out_dir):
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "falcon_tpu"))
     log(phase="mp_child", rank=rank, world=dist.get_world_size(),
+        device=str(pipe.device), mesh=[str(d) for d in pipe.mesh or ()],
         use_dp=use_dp,
         dp_path_ran="phase0_cns_dp_batches" in pipe.timings,
         launches=launches, wall_s=wall, loaded=loaded, **{
@@ -974,6 +990,138 @@ def ladder_walk(scan, g, T, D):
     return bp, cov, gb_s, gb_t, gb_d, gb_b
 
 
+def boundary_walk(scan, g, T, D, window):
+    """Point group g of a scan's outputs at a walk from (T - 1, 0, 1) that
+    jumps straight down the columns at delta 0, but enters each first and
+    last column of a K6 window (counted from T - 1) at d = D - 1 and stays
+    down to d = 0 there: the window boundaries fall on stay steps.  The
+    start is at t = 0."""
+    bp, cov, gb_s, gb_t, gb_d, gb_b = (x.clone() for x in scan)
+    t = torch.arange(T, device=bp.device)
+    edge = ((T - 1 - t) % window == 0) | ((T - 1 - t) % window ==
+                                          window - 1)
+    pd = torch.where(edge.roll(1), D - 1, 0)        # the level t - 1 is
+    d = torch.arange(D, device=bp.device).repeat_interleave(5)   # entered at
+    b = torch.arange(5, device=bp.device).repeat(D)
+    col = torch.where(d[None] == 0, pd[:, None] * 5 + 1, 128 + b[None])
+    bp[:, g] = col.to(torch.uint8)
+    bp[0, g, :5] = 254
+    gb_s[g], gb_t[g], gb_d[g], gb_b[g] = 1.0, T - 1, 0, 1
+    return bp, cov, gb_s, gb_t, gb_d, gb_b
+
+
+def walk_cases(rng, T, D, window, device="cpu"):
+    """K6 inputs that are hard for its window ring, 8 groups: a walk
+    through a random pred plane (stays, jumps to any level, gaps, rare
+    start codes); one that starts at t = 0; two that end at a start code on
+    a window's first and last column; the 2T-code ladder (ladder_walk);
+    an empty group (gb_s = -1); boundary_walk; a random walk from a random
+    t.  Coverage in [0, 4].  Returns (bp, cov, gb_s, gb_t, gb_d, gb_b) as
+    backtrack_walk takes them."""
+    G = 8
+    d = np.arange(D).repeat(5)[None, None, :]
+    pd = np.where(rng.random((T, G, D * 5)) < 0.7, 0,
+                  rng.integers(0, D, (T, G, D * 5)))
+    jump = pd * 5 + rng.integers(0, 5, (T, G, D * 5))
+    stay = 128 + rng.integers(0, 5, (T, G, D * 5))
+    r = rng.random((T, G, D * 5))
+    bp = np.where(d == 0, np.where(r < 0.002, 254, jump),
+                  np.where(r < 0.005, 255, np.where(r < 0.55, stay, jump)))
+    bp = bp.astype(np.uint8)
+    cov = rng.integers(0, 5, (G, T)).astype(np.int32)
+    gb_t = np.full(G, T - 1, np.int32)
+    gb_d = rng.integers(0, D, G).astype(np.int32)
+    gb_b = rng.integers(0, 5, G).astype(np.int32)
+    gb_t[1] = 0
+    gb_t[7] = rng.integers(0, T)
+    for g, t_s in ((2, T - 1 - window), (3, T - window)):
+        # a straight walk at delta 0 onto a start code at t_s
+        t_s = max(t_s, 0)
+        bp[:, g, :5] = rng.integers(0, 5, (T, 5))
+        bp[t_s, g, :5] = 254
+        gb_d[g] = 0
+    gb_s = np.ones(G, np.float32)
+    gb_s[5] = -1.0
+    scan = tuple(torch.from_numpy(x) for x in (bp, cov, gb_s, gb_t, gb_d,
+                                               gb_b))
+    scan = ladder_walk(scan, 4, T, D)
+    scan = boundary_walk(scan, 6, T, D, window)
+    return tuple(x.to(device) for x in scan)
+
+
+def walk_steps(bp, cov, gb_s, gb_t, gb_d, gb_b, T, D):
+    """The reads of bp each group's walk makes (K6's dependent steps),
+    walked on the host in numpy, all groups together: numpy [G]."""
+    bp, gb_s, t, d, b = (x.cpu().numpy() for x in (bp, gb_s, gb_t, gb_d,
+                                                   gb_b))
+    G = bp.shape[1]
+    bpf = bp.reshape(-1).astype(np.int64)
+    t, d, b = (x.astype(np.int64) for x in (t, d, b))
+    ck = b.copy()
+    g_ar = np.arange(G)
+    n = np.zeros(G, np.int64)
+    steps = np.zeros(G, np.int64)
+    done = gb_s == -1.0
+    while not done.all():
+        code = bpf[(np.clip(t, 0, T - 1) * G + g_ar) * (D * 5) + d * 5 + b]
+        steps += ~done
+        can = ~done & (code < 250)
+        n += can & (ck != 4)
+        jump = can & (code < 128)
+        stay = can & (code >= 128)
+        b = np.where(jump, code % 5, np.where(stay, code - 128, b))
+        d = np.where(jump, code // 5, np.where(stay, d - 1, d))
+        ck = np.where(can, b, ck)
+        t = np.where(jump, t - 1, t)
+        done |= (code >= 250) | (t < 0) | (n >= 2 * T)
+    return steps
+
+
+def tag_rows(rng, P, T, D, segs, G=5, B=8):
+    """K4 inputs made to break a segmented decode (B >= 8 rows): move
+    streams of P bytes (END->START, 4 moves a byte) with leading inactive
+    columns and runs of insertions shorter than D, and rows whose first bad
+    column falls on the first column of segment 1 (of `segs` segments of
+    ceil(P / segs) bytes; column 0 for one segment; delta >= D, or tpos < 0
+    where the column is too near the start), on the last column of segment
+    segs // 2, under 500 active columns, a dead row (gidx -1), a row the bd
+    gate drops, a row that runs past T, and plain rows.  Returns (mvp
+    [P, B] uint8, basep [4P, B] int8, bd, gidx, s2 [B] int32) as numpy
+    arrays."""
+    S = 4 * P
+    sb = -(-P // segs)
+    m = np.full((B, S), 3, np.int64)             # columns START->END
+    s2 = rng.integers(1, T // 2, B)
+    for row in range(B):
+        lead = int(rng.integers(0, 8))
+        m[row, lead:] = rng.choice(3, S - lead, p=[0.8, 0.1, 0.1])
+    run = np.zeros(B, np.int64)
+    for k in range(S):                           # no run of D insertions
+        run = np.where(m[:, k] == 2, run + 1, 0)
+        m[run >= D, k] = 0
+        run[run >= D] = 0
+    for row, kb in ((0, 4 * sb if segs > 1 else 0),
+                    (1, min(4 * (segs // 2 + 1) * sb, S) - 1)):
+        if kb >= D + 8:                          # D insertions after a match
+            m[row, kb - D:kb + 1] = [0] + [2] * D
+        else:                                    # an insertion opens the row
+            m[row, :kb] = 3
+            m[row, kb] = 2
+            s2[row] = 0
+    m[2, :S - 400] = 3                           # 400 active columns
+    s2[6] = T - S // 8                           # runs past T
+    gidx = rng.integers(0, G, B).astype(np.int32)
+    gidx[3] = -1
+    bd = rng.integers(0, 50, B).astype(np.int32)
+    bd[4] = 10 ** 6
+    stream = m[:, ::-1].reshape(B, P, 4)         # END->START
+    mvp = (stream[..., 0] | stream[..., 1] << 2 | stream[..., 2] << 4 |
+           stream[..., 3] << 6).T.astype(np.uint8)
+    basep = rng.integers(0, 5, (S, B)).astype(np.int8)
+    return (np.ascontiguousarray(mvp), basep, bd, gidx,
+            s2.astype(np.int32))
+
+
 def dp_equal(got, ref):
     """(max abs difference over paired tensors, all bit-equal)."""
     err = max(float((g.double() - r.double()).abs().max()) if g.numel()
@@ -1026,7 +1174,10 @@ def phase_dp_kernels(rng, card, clock, lat, buckets, min_cov=2,
     """K4, K5 and K6 bit-equal to their twins at each T bucket, G from the
     port's _dp_group_cap, then timed (kernels by cuda_ms, twins once).
     K6 runs on the scan's outputs with group G - 2 moved onto a 2T-code
-    ladder.  Returns ({kernel: max abs err}, {T: times})."""
+    ladder and group G - 3 onto boundary_walk (its K6 windows' boundaries
+    on stay steps); its chain floor is the longest walk's reads of bp
+    (walk_steps) at the shared-memory latency, beside the device-memory
+    one.  Returns ({kernel: max abs err}, {T: times})."""
     from falcon_tpu_torch.cns.device import DeviceCns
     from falcon_tpu_torch.ops import cns_dp
     from falcon_tpu_torch.ops import cns_dp_cuda as k
@@ -1058,7 +1209,8 @@ def phase_dp_kernels(rng, card, clock, lat, buckets, min_cov=2,
                           warm=False)
         e5, eq5 = dp_equal(scan, ref)
         del ref
-        lad = ladder_walk(scan, G - 2, T, D)
+        lad = boundary_walk(ladder_walk(scan, G - 2, T, D), G - 3, T, D,
+                            k.WALK_WINDOW)
         walk, t6 = cuda_ms(lambda: k.backtrack_walk_cuda(*lad, min_cov, G, T,
                                                          D), reps=3)
         ref, p6 = cuda_ms(lambda: cns_dp.backtrack_walk(*lad, min_cov, G, T,
@@ -1076,10 +1228,13 @@ def phase_dp_kernels(rng, card, clock, lat, buckets, min_cov=2,
                            8 * tags, 0, mhz)
         b5, by5 = bound_ms(G * T * (2 * (5 * cns_dp.NPC0 + (D - 1) * 5 *
                                          cns_dp.NPCD) + D * 5 + 4), 0, mhz)
-        steps6 = [x + T for x in n]          # emissions plus column moves
-        b6, by6 = bound_ms(sum(steps6) + G * 2 * T + 4 * G, 0, mhz)
+        steps6 = walk_steps(*lad, T, D)      # each walk's reads of bp
+        b6, by6 = bound_ms(int(steps6.sum()) + G * 2 * T + 4 * G, 0, mhz)
         c5 = chain_ms(T, lat["shared"], mhz)
-        c6 = chain_ms(max(steps6), lat["global"], mhz)
+        # K6 reads each step's code from shared memory; the design it
+        # replaced read it from device memory
+        c6 = chain_ms(int(steps6.max()), lat["shared"], mhz)
+        c6_dev = chain_ms(int(steps6.max()), lat["global"], mhz)
         log(phase="dp_kernels", card=card, T=T, G=G, D=D, L=L,
             rows=rows, tags=tags, sm_clock_mhz=mhz,
             k4_bound_ms=b4, k4_bound_by=by4, k5_bound_ms=b5, k5_bound_by=by5,
@@ -1087,15 +1242,21 @@ def phase_dp_kernels(rng, card, clock, lat, buckets, min_cov=2,
             k5_clk_per_step=t5 * mhz * 1e3 / T,
             k5_mean_dmax=mean_dmax(got, G, T, D), k6_bound_ms=b6,
             k6_bound_by=by6, k6_chain_floor_ms=c6,
-            k6_longest_walk_steps=max(steps6),
+            k6_device_read_chain_floor_ms=c6_dev,
+            k6_longest_walk_steps=int(steps6.max()),
+            k6_clk_per_step=t6 * mhz * 1e3 / int(steps6.max()),
+            k6_window=k.WALK_WINDOW,
+            k4_layout=k.tag_layout(rows, rest[0].shape[0], torch.cuda.
+                                   get_device_properties(0).
+                                   multi_processor_count),
             k4_share_of_bound=share_of_bound("K4 T=%d" % T, t4, b4),
             k5_share_of_bound=share_of_bound("K5 T=%d" % T, t5, b5),
             k6_share_of_bound=share_of_bound("K6 T=%d" % T, t6, b6),
             k4_max_abs_err=e4, k4_bit_equal=eq4, k5_max_abs_err=e5,
             k5_bit_equal=eq5, k6_max_abs_err=e6, k6_bit_equal=eq6,
             emitted_min=min(n), emitted_max=max(n),
-            k4_ms=t4, k4_plain_ms=p4, k5_ms=t5, k5_plain_ms=p5, k6_ms=t6,
-            k6_plain_ms=p6)
+            k4_ms=t4, k4_plain_ms=p4,
+            k5_ms=t5, k5_plain_ms=p5, k6_ms=t6, k6_plain_ms=p6)
         if not (eq4 and eq5 and eq6):
             raise SystemExit("K4/K5/K6 differ from their twins at T=%d G=%d:"
                              " %s %s %s" % (T, G, e4, e5, e6))

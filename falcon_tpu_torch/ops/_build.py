@@ -103,7 +103,7 @@ def lib():
         so.ftt_tb_bwd_block.argtypes = so.ftt_tb_bwd.argtypes
         so.ftt_tb_bwd_block.restype = i
         so.ftt_tags.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                ctypes.c_float, p]
+                                ctypes.c_float, i, i, p]
         so.ftt_tags.restype = i
         so.ftt_cns_scan.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
         so.ftt_cns_scan.restype = i

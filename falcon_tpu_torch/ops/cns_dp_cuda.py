@@ -6,6 +6,10 @@ accumulate_tags_planes, consensus_scan, backtrack + compact_emit).  Each
 wrapper checks device, dtype, shape and contiguity; on CUDA tensors it
 launches its kernel or raises, on CPU tensors it runs the twin.  LAUNCHES
 counts each kernel's launches.
+
+K4's launch shape, rows a block and segments a row, comes from the
+batch's shape and the card's SM count (tag_layout); it changes nothing in
+the result.
 """
 import ctypes
 
@@ -16,6 +20,20 @@ from . import _build
 from . import cns_dp
 
 LAUNCHES = {"tags": 0, "cns_scan": 0, "cns_walk": 0}
+
+WALK_WINDOW = 32     # K6: columns a window of its ring (csrc WALK_WINDOW)
+MAX_TAG_THREADS = 512     # K4's threads a block (csrc TAG_THREADS)
+
+
+def tag_layout(B, P, sms):
+    """K4's (rows a block, segments a row) for B rows of P move bytes on
+    a card of `sms` SMs: segments of ~16 bytes (64 columns), at most 128;
+    rows a block the largest power of two up to B / sms, so that the
+    blocks reach every SM, within MAX_TAG_THREADS threads a block."""
+    segs = max(1, min(128, -(-P // 16)))
+    per_sm = -(-B // sms)
+    rows = 1 << (max(per_sm, 1).bit_length() - 1)
+    return max(1, min(rows, MAX_TAG_THREADS // segs)), segs
 
 
 def _check(name, x, dtype, shape, device):
@@ -73,11 +91,14 @@ def accumulate_tags_planes_cuda(msa, mvp, basep, bd, gidx, s2, max_diff, T,
                                              max_diff, T, D)
     _on_cuda(msa, "K4")
     if B and P:
+        rows, segs = tag_layout(
+            B, P, torch.cuda.get_device_properties(dev).multi_processor_count)
         with torch.cuda.device(dev):
             _build.check(_build.lib().ftt_tags(
                 msa.data_ptr(), mvp.data_ptr(), basep.data_ptr(),
                 bd.data_ptr(), gidx.data_ptr(), s2.data_ptr(), B, P, G, T,
-                D, ctypes.c_float(max_diff), _build.stream_of(msa)), "K4")
+                D, ctypes.c_float(max_diff), rows, segs,
+                _build.stream_of(msa)), "K4")
         LAUNCHES["tags"] += 1
     return msa
 
@@ -109,7 +130,8 @@ def consensus_scan_cuda(msa, G, T, D):
 def backtrack_walk_cuda(bp, cov, gb_s, gb_t, gb_d, gb_b, min_cov, G, T, D):
     """Walk back from each group's best column (K6).  Returns (out [G, 2T]
     uint8 emitted codes, 0 past the count; counts [G] int32), as
-    ops.cns_dp.backtrack_walk."""
+    ops.cns_dp.backtrack_walk.  bp is K5's (stay codes at d >= 1 only,
+    jumps to d < D)."""
     _check_dims(G, T, D)
     dev = bp.device
     _check("bp", bp, torch.uint8, (T, G, D * 5), dev)

@@ -18,8 +18,10 @@ card), and on CPU devices every shard runs K1's plain twin.  A mesh of
 one entry is the single-device path: one gather and one K1 launch a batch.
 
 The extender's default mesh (extender_mesh) is every visible GPU only when
-the caller asked for CUDA without naming a device; a named device
-(cuda:1, FTPU_TORCH_DEVICE=cuda:1) is a mesh of that device alone.
+the caller asked for CUDA without naming a device in a process that is not
+one of several; a named device (cuda:1, FTPU_TORCH_DEVICE=cuda:1) is a mesh
+of that device alone, and so is the process's own card
+(utils.device.process_card) in one of several processes.
 """
 import os
 
@@ -29,6 +31,7 @@ import torch
 from ..ops.align_cuda import extend_batch_cuda
 from ..ops.align_device import gather_pad2, gather_specs2_packed, pack_tasks
 from ..utils.device import resolve_device
+from .distributed import want_distributed
 
 
 def make_mesh(n_devices=None, devices=None):
@@ -54,14 +57,17 @@ def make_mesh(n_devices=None, devices=None):
 def extender_mesh(device=None, devices=None):
     """The mesh a DeviceExtender shards over: make_mesh(devices=devices)
     when devices is given; else every visible GPU when the request
-    (device, else FTPU_TORCH_DEVICE, else "cuda") is CUDA with no index;
-    else the one device it resolves to (utils.device.resolve_device)."""
+    (device, else FTPU_TORCH_DEVICE, else "cuda") is CUDA with no index
+    and the process is not one of several; else the one device it
+    resolves to (utils.device.resolve_device: under several processes a
+    bare "cuda" is the process's own card)."""
     if devices is not None:
         return make_mesh(devices=devices)
     dev = resolve_device(device)
     req = device if device is not None else \
         os.environ.get("FTPU_TORCH_DEVICE", "cuda")
-    if dev.type == "cuda" and torch.device(req).index is None:
+    if dev.type == "cuda" and torch.device(req).index is None and \
+            not want_distributed():
         return make_mesh()
     return (dev,)
 

@@ -96,6 +96,7 @@ class Pipeline:
         for d in (self.dir0, self.dir1, self.dir2):
             os.makedirs(d, exist_ok=True)
         self.timings = {}
+        self.mesh = None     # the device extender's, once it is built
         system.set_heartbeat_dir(self.out_dir)
 
     # -- helpers -----------------------------------------------------------
@@ -135,6 +136,8 @@ class Pipeline:
         falcon_tpu."""
         blocks = store.blocks or store.split_blocks()
         aligner = self._aligner()
+        if aligner is not None:
+            self.mesh = aligner.ext.mesh
         host_id, n_hosts = distributed.init_distributed()
         pairs = sorted(distributed.host_block_pairs(len(blocks), host_id,
                                                     n_hosts),

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from chip_smoke import (adversarial_counts, dp_batch, ladder_walk,
-                        make_pairs, spec_batch, swept_cells_equal)
+                        make_pairs, spec_batch, swept_cells_equal, tag_rows,
+                        walk_cases)
 from falcon_tpu_torch.cns.device import DeviceCns
 from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp
 from falcon_tpu_torch.ops import cns_dp_cuda as dpk
@@ -261,3 +262,59 @@ def test_dp_wrappers_reject_cpu_tensors(rng):
     assert dpk.LAUNCHES == n
     for g, r in zip(scan, cpu):
         assert torch.equal(g.cpu(), r)
+
+
+# (D, T, byte offset of bp): T under one K6 window (WALK_WINDOW columns),
+# on a window's boundary and one past it, and long; T off a multiple of 8
+# (the output's byte path) and on it (16 bytes a lane)
+WALK_CASES = [(3, 31, 1), (3, 1024, 3), (14, 33, 2), (14, 64, 0),
+              (14, 2048, 1), (16, 97, 3), (16, 1000, 2)]
+
+
+@pytest.mark.parametrize("depth,T,off", WALK_CASES)
+def test_k6_matches_twin_on_walk_cases(rng, depth, T, off):
+    """K6 on walk_cases at its own window (random plane, t = 0 start,
+    start codes on a window's first and last column, the 2T ladder, an
+    empty group, stays on every window boundary), bp placed at byte
+    offset `off`."""
+    bp, *rest = walk_cases(rng, T, depth, dpk.WALK_WINDOW, device="cuda")
+    G = bp.shape[1]
+    moved = torch.empty(bp.numel() + 4, dtype=torch.uint8, device="cuda")
+    moved = moved[off:off + bp.numel()].view(bp.shape)
+    moved.copy_(bp)
+    n = dpk.LAUNCHES["cns_walk"]
+    rows, counts = dpk.backtrack_walk_cuda(moved, *rest, 2, G, T, depth)
+    torch.cuda.synchronize()
+    assert dpk.LAUNCHES["cns_walk"] == n + 1
+    ref_rows, ref_counts = cns_dp.backtrack_walk(bp, *rest, 2, G, T, depth)
+    assert torch.equal(counts, ref_counts) and torch.equal(rows, ref_rows)
+    assert counts[5] == 0 and counts[4] == 2 * T
+
+
+# (D, P move bytes, B rows): K4's layout follows from them and the SM count
+# (tag_layout; on 132 SMs: 8, 17, 128 segments a row at 1 row a block, 17
+# at 8 rows, 9 at 4, 33 at 15, 128 segments of 32 bytes at 2)
+TAG_CASES = [(3, 128, 8), (14, 257, 8), (16, 2048, 8), (14, 257, 1000),
+             (3, 130, 600), (16, 513, 4000), (14, 4096, 200)]
+
+
+@pytest.mark.parametrize("depth,P,B", TAG_CASES)
+def test_k4_matches_twin_on_tag_rows(rng, depth, P, B):
+    """K4 on tag_rows (first bad columns on a segment's first and last
+    column, a short row, a dead row, a gated row, a row past T, then
+    plain rows up to B), every count."""
+    G, T = 5, 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    segs = dpk.tag_layout(B, P, sms)[1]
+    args = [torch.from_numpy(x).cuda()
+            for x in tag_rows(rng, P, T, depth, segs, G, B)]
+    msa = cns_dp.alloc_msa(G, T, depth, "cuda")
+    n = dpk.LAUNCHES["tags"]
+    got = dpk.accumulate_tags_planes_cuda(msa.clone(), *args, MAX_DIFF, T,
+                                          depth)
+    torch.cuda.synchronize()
+    assert dpk.LAUNCHES["tags"] == n + 1
+    ref = cns_dp.accumulate_tags_planes(msa.clone(), *args, MAX_DIFF, T,
+                                        depth)
+    got, ref = cns_dp.counts_i32(got), cns_dp.counts_i32(ref)
+    assert torch.equal(got, ref) and int(got.sum()) > 0

@@ -159,3 +159,74 @@ def test_extender_mesh_takes_every_gpu_only_when_none_is_named(
     assert DeviceExtender(W=128, device=device).mesh == want
     assert DeviceExtender(W=128, device=device, devices=CPU3).mesh == \
         (torch.device("cpu"),) * 3
+
+
+def _fake_gpus(monkeypatch, n):
+    """torch.cuda as a host with n GPUs shows it, cuda:0 current."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda d=None: "fake GPU")
+
+
+@pytest.mark.parametrize("n,pid,device,env,want", [
+    (4, 0, None, None, "cuda:0"), (4, 1, None, None, "cuda:1"),
+    (4, 6, None, None, "cuda:2"), (4, 3, "cuda", None, "cuda:3"),
+    (4, 5, None, "cuda", "cuda:1"), (1, 1, None, None, "cuda:0"),
+    (4, 1, "cuda:0", None, "cuda:0"), (4, 2, None, "cuda:3", "cuda:3"),
+    (4, 1, "cpu", None, "cpu"),
+])
+def test_each_process_takes_its_own_card(n, pid, device, env, want,
+                                         monkeypatch):
+    """On a (faked) host with n GPUs, a process launched as one of several
+    (FTPU_COORDINATOR_ADDRESS, FTPU_PROCESS_ID) resolves a bare cuda to
+    cuda:(pid % n), and its extender's mesh is that card alone; on a
+    one-card host every process takes cuda:0; a named device wins."""
+    from falcon_tpu_torch.utils.device import resolve_device
+    _fake_gpus(monkeypatch, n)
+    monkeypatch.setenv("FTPU_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    monkeypatch.setenv("FTPU_NUM_PROCESSES", "8")
+    monkeypatch.setenv("FTPU_PROCESS_ID", str(pid))
+    if env is None:
+        monkeypatch.delenv("FTPU_TORCH_DEVICE", raising=False)
+    else:
+        monkeypatch.setenv("FTPU_TORCH_DEVICE", env)
+    assert resolve_device(device) == torch.device(want)
+    assert DeviceExtender(W=128, device=device).mesh == (torch.device(want),)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_one_process_shards_over_every_gpu(device, monkeypatch):
+    """Without the process variables a bare cuda is the current card and
+    the extender's mesh is every (faked) GPU."""
+    from falcon_tpu_torch.utils.device import resolve_device
+    _fake_gpus(monkeypatch, 4)
+    for key in ("FTPU_COORDINATOR_ADDRESS", "FTPU_PROCESS_ID",
+                "FTPU_TORCH_DEVICE"):
+        monkeypatch.delenv(key, raising=False)
+    assert resolve_device(device) == torch.device("cuda", 0)
+    assert DeviceExtender(W=128, device=device).mesh == tuple(
+        torch.device("cuda", k) for k in range(4))
+
+
+@pytest.mark.parametrize("n,num,warned", [(4, 4, False), (4, 2, False),
+                                          (4, 8, True), (1, 2, True)])
+def test_process_card_warns_when_processes_can_share_a_card(
+        n, num, warned, monkeypatch, caplog):
+    """process_card warns, once a process, exactly when there are more
+    processes (FTPU_NUM_PROCESSES) than visible GPUs, so that two processes
+    of a host may land on one card."""
+    import logging
+
+    from falcon_tpu_torch.utils import device as udev
+    _fake_gpus(monkeypatch, n)
+    monkeypatch.setattr(udev, "_logged", set())
+    monkeypatch.setenv("FTPU_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    monkeypatch.setenv("FTPU_NUM_PROCESSES", str(num))
+    monkeypatch.setenv("FTPU_PROCESS_ID", "1")
+    with caplog.at_level(logging.INFO, logger=udev.LOG.name):
+        assert udev.process_card() == torch.device("cuda", 1 % n)
+        udev.process_card()
+    warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(warnings) == int(warned)

@@ -1,7 +1,8 @@
 """Time the kernels of two trees of falcon_tpu_torch on one card, in one call.
 
     python tools/tb_compare.py --parent DIR [--change DIR]
-        [--shapes BxL,...] [--k1-shapes BxL,...] [--k5-shapes TxG,...]
+        [--shapes BxL,...] [--k1-shapes BxL,...] [--k4-shapes TxG,...]
+        [--k5-shapes TxG,...] [--k6-shapes TxG,...]
 
 DIR holds another tree's falcon_tpu_torch/ and nothing else of it (say
 `git archive <commit> falcon_tpu_torch | tar -x -C DIR`, or a copy of the
@@ -14,13 +15,20 @@ builds its own kernels), on the same inputs made from --seed:
                its edge rows, read-vs-read pairs at 8-15% error, lengths in
                [L/2, L]; every launch's trace exceeds L2
   --k1-shapes  K1 at (B, L), W = 256, on the same kind of pairs
+  --k4-shapes  K4 at (T, G), D = 14, on one DP batch's 2G rows at
+               L = min(T/2, 16384) (chip_smoke.dp_batch through the tree's
+               own K2 + K3), the timed launches adding to one buffer
   --k5-shapes  K5 at (T, G), D = 14, on the counts of one DP batch
                (chip_smoke.dp_batch through the tree's own K2-K4)
+  --k6-shapes  K6 at (T, G), D = 14, on that batch's scan (the tree's own
+               K4 + K5) with group G - 2 on the 2T-code ladder
+               (chip_smoke.ladder_walk), as chip_smoke's dp_kernels times it
 
 An empty list skips its kernels.  Kernel times are CUDA events, the mean of
 --reps launches after a warm-up.  One JSON line per (tree, kernel, shape),
 then a summary line per kernel and shape; `same` says whether the two
-trees' outputs agreed (a checksum of the end cells, or of K5's six outputs).
+trees' outputs agreed (a checksum of the end cells, of K4's counts, of
+K5's six outputs or of K6's two).
 """
 import argparse
 import json
@@ -37,7 +45,7 @@ def worker(args):
     """Times the falcon_tpu_torch that PYTHONPATH puts first."""
     import numpy as np
     import torch
-    from chip_smoke import cuda_ms, dp_batch, make_pairs
+    from chip_smoke import cuda_ms, dp_batch, ladder_walk, make_pairs
     from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp_cuda
     tree = os.path.dirname(os.path.dirname(os.path.dirname(
         align_cuda.__file__)))
@@ -64,6 +72,19 @@ def worker(args):
             reps=args.reps)
         out(kernel="K1", shape=[B, L], W=W, k1_ms=ms,
             checksum=int(ends.sum()))
+    for T, G in args.k4_shapes:
+        msa, rest = dp_batch(rng, G, T, min(T // 2, 16384), D,
+                             np.float32(0.3))
+        got = cns_dp_cuda.accumulate_tags_planes_cuda(msa.clone(), *rest)
+        # the timed launches add to one scratch copy, as chip_smoke does
+        _, ms = cuda_ms(
+            lambda: cns_dp_cuda.accumulate_tags_planes_cuda(msa, *rest),
+            reps=args.reps)
+        out(kernel="K4", shape=[T, G], D=D, rows=rest[0].shape[1],
+            k4_ms=ms, checksum=int(got.view(torch.int16).to(
+                torch.int64).sum()))
+        del msa, rest, got
+        torch.cuda.empty_cache()
     for T, G in args.k5_shapes:
         msa, rest = dp_batch(rng, G, T, min(T // 2, 16384), D,
                              np.float32(0.3))
@@ -76,6 +97,22 @@ def worker(args):
         out(kernel="K5", shape=[T, G], D=D, k5_ms=ms,
             checksum=sum(int(x.long().sum()) for x in scan))
         del msa, scan
+        torch.cuda.empty_cache()
+    for T, G in args.k6_shapes:
+        msa, rest = dp_batch(rng, G, T, min(T // 2, 16384), D,
+                             np.float32(0.3))
+        cns_dp_cuda.accumulate_tags_planes_cuda(msa, *rest)
+        del rest
+        scan = ladder_walk(cns_dp_cuda.consensus_scan_cuda(msa, G, T, D),
+                           G - 2, T, D)
+        del msa
+        torch.cuda.empty_cache()
+        walk, ms = cuda_ms(
+            lambda: cns_dp_cuda.backtrack_walk_cuda(*scan, 2, G, T, D),
+            reps=args.reps)
+        out(kernel="K6", shape=[T, G], D=D, k6_ms=ms,
+            checksum=int(walk[0].long().sum()) + int(walk[1].sum()))
+        del scan, walk
         torch.cuda.empty_cache()
 
 
@@ -92,7 +129,11 @@ def main(argv=None):
                     default="1024x1024,256x16384")
     ap.add_argument("--k1-shapes", type=shape_list,
                     default="16384x1024,4096x8192")
+    ap.add_argument("--k4-shapes", type=shape_list,
+                    default="8192x360,32768x90")
     ap.add_argument("--k5-shapes", type=shape_list,
+                    default="8192x360,32768x90")
+    ap.add_argument("--k6-shapes", type=shape_list,
                     default="8192x360,32768x90")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--reps", type=int, default=3)

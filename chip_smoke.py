@@ -18,7 +18,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
             16384, at W = 32, 128 and 512 (the warp kernel's other bands)
             and at W = 96 (the block kernel); then bit-equal and timed at
             the (B, L) the pipeline's extender launches at L = 1024 and
-            8192
+            8192, at W = 256 and at W = 96 and 1024 (the block kernel)
   sharded_k1  the extender's multi-device path: sharded_specs_extend over
             make_mesh() (over cuda:0 twice on a one-card machine) at
             (B, L) = (16384, 1024) and (4096, 8192), bit-equal to one K1
@@ -69,6 +69,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
             highest level in use, K6 with its clocks per step, K4 with
             its launch shape); and K5 on adversarial counts
             (adversarial_counts) at D = 3, 14 and 16
+  graft     the graft entry (falcon_tpu_torch.graft_entry): entry() on the
+            card bit-equal to K1's twin; dryrun_multichip over every GPU
+            (two shards of cuda:0 on one card), every kernel K1-K6
+            launched in it, each stage bit-equal to the same stages on
+            cuda:0 unsplit
+  consensus_mesh  the consensus chain at full width over that mesh (T 8192
+            G 360 with (B, L) (4096, 1024); T 32768 G 90 with (1024,
+            16384)): sharded_tb_align, sharded_cns_accumulate,
+            sharded_cns_scan, each stage bit-equal to the chain on cuda:0
+            and timed on both, with its shard rows
+  supervise  python -m falcon_tpu_torch.pipeline.supervise on the smoke
+            inputs with FTPU_CNS_DP=1: a first supervisor's RSS limit
+            recycles the driver at its first checkpoint, and once it has
+            restarted the driver both are killed; a second supervisor
+            resumes the run to exit 0, artifacts byte-equal to
+            pipeline_dp's; no jax / falcon_tpu module in any of their
+            processes (-X importtime)
+  mains     every falcon_tpu_torch.mains tool's --help (exit 0 with usage,
+            or as falcon_tpu's own tool ends), the path tools on the
+            supervised run's 2-asm-falcon, fc_consensus's stream mode
+            byte-equal to cns.runner in process
 
 Every timing line carries the kernel's bound: the larger of its bytes
 (each input once, each output once) over 3.35 TB/s and its int32 operations
@@ -90,6 +111,7 @@ line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero before printing either.
 """
 import argparse
+import io
 import json
 import logging
 import os
@@ -333,11 +355,15 @@ def k1_check(got, ref, W, L, B, **kv):
     return e
 
 
+K1_BLOCK_BANDS = (96, 1024)     # bands of K1's block kernel timed
+
+
 def phase_k1(rng, card, clock):
     """Parity at small batches of every band of the warp kernel and one
     of the block kernel, then parity, times and bounds at the (B, L) the
-    pipeline's extender launches (its _batch_for).  Returns (max abs err,
-    {L: timing dict})."""
+    pipeline's extender launches (its _batch_for) at L 1024 and 8192: at
+    W_MAIN (the warp kernel) and at K1_BLOCK_BANDS (the block kernel).
+    Returns (max abs err, {L: W_MAIN's timing dict})."""
     from falcon_tpu_torch.ops.align_cuda import extend_batch_cuda, kernel_for
     from falcon_tpu_torch.ops.align_device import band_cells, extend_batch
     from falcon_tpu_torch.overlap.engine import make_device_aligner
@@ -353,29 +379,35 @@ def phase_k1(rng, card, clock):
         err = max(err, k1_check(got, ref, W, L, B, kernel=kernel_for(W)))
     ext = make_device_aligner(W=W_MAIN, device="cuda").ext
     times = {}
-    for L in (1024, 8192):
-        B = ext._batch_for(L)
-        args = make_pairs(rng, B, L, W_MAIN)
-        clock.mark()
-        got, ms = cuda_ms(lambda: extend_batch_cuda(*args, W=W_MAIN),
-                          reps=3)
-        mhz = clock.peak()
-        ref, plain = cuda_ms(lambda: extend_batch(*args, W=W_MAIN))
-        err = max(err, k1_check(got, ref, W_MAIN, L, B, main_path=True,
-                                kernel=kernel_for(W_MAIN)))
-        ql, tl = args[1].cpu().numpy(), args[3].cpu().numpy()
-        cells = int(band_cells(ql, tl, W_MAIN).sum())
-        bnd, by = bound_ms(2 * B * L + 8 * B + 12 * B,
-                           cells * OPS_PER_CELL["K1"], mhz)
-        times[L] = dict(B=B, ms=ms, plain_ms=plain, bound_ms=bnd,
-                        bound_by=by)
-        log(phase="k1_time", card=card, B=B, L=L, W=W_MAIN, kernel_ms=ms,
-            plain_ms=plain, band_cells=cells, sm_clock_mhz=mhz,
-            bound_ms=bnd, bound_by=by,
-            share_of_bound=share_of_bound("K1 L=%d" % L, ms, bnd),
-            lane_steps=int((ql + tl).sum()) * W_MAIN)
-        del args, got, ref
-        torch.cuda.empty_cache()
+    # the main path's band, then the block kernel's (no default run
+    # launches it) at the same extender shapes
+    for W in (W_MAIN,) + K1_BLOCK_BANDS:
+        for L in (1024, 8192):
+            B = ext._batch_for(L)
+            args = make_pairs(rng, B, L, W)
+            clock.mark()
+            got, ms = cuda_ms(lambda: extend_batch_cuda(*args, W=W),
+                              reps=3)
+            mhz = clock.peak()
+            ref, plain = cuda_ms(lambda: extend_batch(*args, W=W))
+            err = max(err, k1_check(got, ref, W, L, B,
+                                    main_path=W == W_MAIN,
+                                    kernel=kernel_for(W)))
+            ql, tl = args[1].cpu().numpy(), args[3].cpu().numpy()
+            cells = int(band_cells(ql, tl, W).sum())
+            bnd, by = bound_ms(2 * B * L + 8 * B + 12 * B,
+                               cells * OPS_PER_CELL["K1"], mhz)
+            if W == W_MAIN:
+                times[L] = dict(B=B, ms=ms, plain_ms=plain, bound_ms=bnd,
+                                bound_by=by)
+            log(phase="k1_time", card=card, B=B, L=L, W=W,
+                kernel=kernel_for(W), kernel_ms=ms, plain_ms=plain,
+                band_cells=cells, sm_clock_mhz=mhz, bound_ms=bnd,
+                bound_by=by, share_of_bound=share_of_bound(
+                    "K1 W=%d L=%d" % (W, L), ms, bnd),
+                lane_steps=int((ql + tl).sum()) * W)
+            del args, got, ref
+            torch.cuda.empty_cache()
     return err, times
 
 
@@ -1274,6 +1306,437 @@ def phase_dp_kernels(rng, card, clock, lat, buckets, min_cov=2,
     return errs, times
 
 
+def mesh_of_cards():
+    """make_mesh() on a host with several GPUs, else two shards of the one
+    card (the mesh a one-card machine can give)."""
+    from falcon_tpu_torch.parallel import mesh as pm
+    if torch.cuda.device_count() > 1:
+        return pm.make_mesh()
+    return pm.make_mesh(devices=("cuda:0", "cuda:0"))
+
+
+def sync_all():
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+def wall_ms(fn):
+    """(fn's output, milliseconds from its call to the end of every card's
+    work), on the host's clock: a stage over several cards has no one
+    stream to put CUDA events on."""
+    sync_all()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_all()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def zero_counters():
+    cnt = counters()
+    for d, key in cnt.values():
+        d[key] = 0
+    return cnt
+
+
+def read_counters(cnt):
+    return {k: d[key] for k, (d, key) in cnt.items()}
+
+
+def tensors_equal(a, b):
+    """Bit-equality of two tensors (uint16 through their int16 views) or
+    numpy arrays."""
+    if isinstance(a, np.ndarray):
+        return bool(np.array_equal(a, b))
+    if a.dtype == torch.uint16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b.to(a.device)))
+
+
+def phase_graft(card):
+    """The graft entry: entry() on the card against K1's plain twin,
+    bit-equal; then dryrun_multichip over mesh_of_cards() (its own checks:
+    every alignment extends, the k-mer sums, self-slices at distance 0,
+    every group's consensus its seed), each stage's outputs bit-equal to
+    the same stages on cuda:0 unsplit (graft_entry.run_stages).  The
+    counts are set to 0 just before the dryrun and read just after: every
+    kernel K1-K6 must have launched in it.  Returns its launches."""
+    from falcon_tpu_torch import graft_entry
+    from falcon_tpu_torch.ops.align_device import extend_batch
+    from falcon_tpu_torch.parallel import mesh as pm
+    t0 = time.time()
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    e1 = k1_check(got, extend_batch(*args, W=256), 256, args[0].shape[1],
+                  args[0].shape[0], graft_entry=True)
+    mesh = mesh_of_cards()
+    cnt = zero_counters()
+    out, mesh_ms = wall_ms(lambda: graft_entry.dryrun_multichip(
+        len(mesh), devices=mesh))
+    launches = read_counters(cnt)
+    ref, one_ms = wall_ms(lambda: graft_entry.run_stages(
+        pm.make_mesh(devices=("cuda:0",)), len(mesh)))
+    equal = {key: tensors_equal(out[key], ref[key])
+             for key in ("extend", "kmer_total", "aligned_bases", "specs",
+                         "msa", "rows", "counts")}
+    equal["tb"] = all(tensors_equal(a, b) for a, b in zip(out["tb"],
+                                                          ref["tb"]))
+    log(phase="graft", card=card, entry_max_abs_err=e1,
+        mesh=[str(d) for d in mesh], launches=launches,
+        stages_equal_to_one_card=equal, dryrun_ms=mesh_ms,
+        one_card_ms=one_ms, seconds=round(time.time() - t0, 3))
+    if not all(equal.values()) or min(launches.values()) < 1:
+        raise SystemExit("graft: stages equal %s, launches %s"
+                         % (equal, launches))
+    return launches
+
+
+# (T, G, B, L): the DP run's smallest and largest T bucket at their groups
+# a batch (DeviceCns._dp_group_cap at D 14), each with the alignment batch
+# DeviceCns._batch_for launches at L 1024 and 16384
+CNS_MESH = ((8192, 360, 4096, 1024), (32768, 90, 1024, 16384))
+
+
+def phase_consensus_mesh(rng, card, min_cov=2, min_idt=0.70):
+    """The consensus chain at full width over mesh_of_cards(), against the
+    same chain on cuda:0 through the kernels' wrappers (the one-card chain
+    of cns.device._dispatch_dp_batch, already held to the twins):
+    sharded_tb_align (K2 + K3, W_MAIN) on B make_pairs rows of length L,
+    sharded_cns_accumulate (K4, row b into group b % (G - 1) at a random
+    seed offset, plus G random seeds' own tags; group G - 1 empty), then
+    sharded_cns_scan (K5 + K6).  Every stage's output bit-equal to the one
+    card's.  Each chain runs twice: the first pass loads the kernels on
+    every card and grows each card's allocator to the chain's buffers;
+    the second is timed stage by stage on the mesh and on the card
+    (wall_ms; the first pass's times are logged beside), with the shard
+    rows, and the counts are read over the mesh's second pass alone.
+    Returns {T: per-stage times}."""
+    from falcon_tpu_torch.ops import cns_dp
+    from falcon_tpu_torch.ops import cns_dp_cuda as k
+    from falcon_tpu_torch.ops.align_tb_cuda import align_tb_batch_cuda
+    from falcon_tpu_torch.parallel import mesh as pm
+    mesh = mesh_of_cards()
+    dev = torch.device("cuda:0")
+    D = cns_dp.D_DEFAULT
+    max_diff = np.float32(1.0 - min_idt)
+    out = {}
+    t_phase = time.time()
+    for T, G, B, L in CNS_MESH:
+        q, ql, t, tl = make_pairs(rng, B, L, W_MAIN)
+        gidx = torch.from_numpy(np.arange(B, dtype=np.int32) % (G - 1))
+        s2 = torch.from_numpy(rng.integers(0, T - L // 4, B)
+                              .astype(np.int32))
+        seeds = torch.from_numpy(rng.integers(0, 4, (G, T), dtype=np.int8))
+        tlens = rng.integers(T // 2, T + 1, G).astype(np.int32)
+        tlens[G - 1] = 0
+        tlens = torch.from_numpy(tlens)
+        gidx_d, s2_d, seeds_d, tlens_d = (x.to(dev) for x in (gidx, s2,
+                                                              seeds, tlens))
+
+        def one_card():
+            res, ms = {}, {}
+            res["tb"], ms["K2+K3"] = wall_ms(
+                lambda: align_tb_batch_cuda(q, ql, t, tl, W=W_MAIN))
+
+            def accumulate():
+                msa = cns_dp.alloc_msa(G, T, D, dev)
+                cns_dp.add_self_tags(msa, seeds_d, tlens_d, T)
+                tb = res["tb"]
+                return k.accumulate_tags_planes_cuda(
+                    msa, tb[3], tb[4], tb[2], gidx_d, s2_d, max_diff, T, D)
+            res["msa"], ms["K4"] = wall_ms(accumulate)
+
+            def scan_walk():
+                scan = k.consensus_scan_cuda(res["msa"], G, T, D)
+                return k.backtrack_walk_cuda(*scan, min_cov, G, T, D)
+            (res["rows"], res["counts"]), ms["K5+K6"] = wall_ms(scan_walk)
+            return res, ms
+
+        def over_mesh():
+            res, ms = {}, {}
+            res["tb"], ms["K2+K3"] = wall_ms(
+                lambda: pm.sharded_tb_align(mesh, q, ql, t, tl, W=W_MAIN))
+            tb = res["tb"]
+            res["msa"], ms["K4"] = wall_ms(
+                lambda: pm.sharded_cns_accumulate(
+                    mesh, G, T, D, tb[3], tb[4], tb[2], gidx, s2, max_diff,
+                    seeds=seeds, tlens=tlens))
+            (res["rows"], res["counts"], _), ms["K5+K6"] = wall_ms(
+                lambda: pm.sharded_cns_scan(mesh, res["msa"], G, T, D,
+                                            min_cov))
+            return res, ms
+        _, first_one = one_card()
+        one, ms_one = one_card()
+        _, first_mesh = over_mesh()
+        cnt = zero_counters()
+        got, ms_mesh = over_mesh()
+        launches = read_counters(cnt)
+        equal = {"tb": all(tensors_equal(a, b) for a, b in
+                           zip(got["tb"], one["tb"]))}
+        equal.update((key, tensors_equal(got[key], one[key]))
+                      for key in ("msa", "rows", "counts"))
+        n = one["counts"].cpu()
+        log(phase="consensus_mesh", card=card, T=T, G=G, D=D, B=B, L=L,
+            W=W_MAIN, mesh=[str(d) for d in mesh],
+            shard_rows=[hi - lo for lo, hi in pm.shard_bounds(B, len(mesh))],
+            shard_groups=[hi - lo for lo, hi in
+                          pm.shard_bounds(G, len(mesh))],
+            mesh_ms=ms_mesh, one_card_ms=ms_one,
+            first_pass_mesh_ms=first_mesh, first_pass_one_card_ms=first_one,
+            launches=launches, equal_to_one_card=equal,
+            emitted_min=int(n[:G - 1].min()), emitted_max=int(n.max()))
+        if not all(equal.values()) or \
+                min(launches[x] for x in ("K2", "K3", "K4", "K5", "K6")) < 1 \
+                or int(n[:G - 1].min()) < 1:
+            raise SystemExit("consensus_mesh at T=%d: equal %s, launches %s"
+                             % (T, equal, launches))
+        out[T] = {"mesh_ms": ms_mesh, "one_card_ms": ms_one}
+        del q, ql, t, tl, one, got
+        torch.cuda.empty_cache()
+    log(phase="consensus_mesh_done", seconds=round(time.time() - t_phase, 3))
+    return out
+
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SUPERVISE_TIMEOUT_S = 420
+# the first supervisor's cooperative RSS limit: a driver process on the
+# card holds more than this from its start (the phase logs its RSS at the
+# recycle), so its first durable checkpoint recycles it; the supervisor's
+# hard backstop, 1.5 x the limit + 4 GB, stays above what a driver holds
+# between checkpoints
+SUPERVISE_RSS_GB = 3.0
+
+
+def loaded_by_import_log(text):
+    """The jax / jaxlib / falcon_tpu modules named in a -X importtime log
+    (PYTHONPROFILEIMPORTTIME=1: one line a module a process imports)."""
+    mods = set()
+    for ln in text.splitlines():
+        if ln.startswith("import time:") and ln.count("|") == 2:
+            name = ln.rsplit("|", 1)[1].strip()
+            if name.split(".")[0] in ("jax", "jaxlib", "falcon_tpu"):
+                mods.add(name)
+    return sorted(mods)
+
+
+def child_env():
+    """The environment of a child command of the port: the repository
+    first on PYTHONPATH (nothing is installed), no device or DP choice of
+    this process, and every process's imports logged (-X importtime)."""
+    env = dict(os.environ)
+    for key in ("FTPU_CNS_DP", "FTPU_PROFILE", "FTPU_TORCH_DEVICE",
+                "FTPU_RSS_LIMIT_GB"):
+        env.pop(key, None)
+    env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    env["PYTHONPROFILEIMPORTTIME"] = "1"
+    return env
+
+
+def children_of(pid):
+    """The processes whose parent is pid (from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % d) as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(d))
+    return out
+
+
+def kill_supervisor(proc):
+    """SIGKILL a supervisor and the driver it started (a session of its
+    own, so not in the supervisor's group): the supervisor is stopped
+    first, so that it starts nothing more, and the phase waits until its
+    children are gone."""
+    import signal
+    os.kill(proc.pid, signal.SIGSTOP)
+    kids = children_of(proc.pid)
+    for c in kids:
+        for kill in (os.killpg, os.kill):   # a child may not have its
+            try:                             # session yet
+                kill(c, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+    deadline = time.time() + 60
+    while any(os.path.exists("/proc/%d" % c) for c in kids) and \
+            time.time() < deadline:
+        time.sleep(0.1)
+    return kids
+
+
+def supervise_cmd(out_dir, *opts):
+    return [sys.executable, "-m", "falcon_tpu_torch.pipeline.supervise",
+            "fc_run.cfg", out_dir, "--stall-min", "5", "--max-failures",
+            "1"] + list(opts)
+
+
+def phase_supervise(args, workdir, card, dp_digests):
+    """`python -m falcon_tpu_torch.pipeline.supervise` on the smoke run's
+    inputs with FTPU_CNS_DP=1, twice on one output directory.  The first
+    supervisor's cooperative RSS limit, SUPERVISE_RSS_GB (handed to its
+    child as FTPU_RSS_LIMIT_GB), recycles the driver at its first durable
+    checkpoint; once it has restarted the driver, the supervisor and that
+    driver are killed (SIGKILL, mid-phase).  A second supervisor with the
+    default limit then resumes the run from the checkpoints to exit 0,
+    every MP_ARTIFACTS file byte-equal to pipeline_dp's (dp_digests).
+    Neither supervisor nor any driver may import a jax / falcon_tpu module
+    (their -X importtime logs).  Each is killed when SUPERVISE_TIMEOUT_S
+    is up.  Returns the run's output directory."""
+    write_run(args, workdir, "supervise")
+    out_dir = os.path.join(workdir, "out")
+    env = child_env()
+    env["FTPU_CNS_DP"] = "1"
+    t0 = time.time()
+    logs = [os.path.join(workdir, "supervise%d.log" % k) for k in (1, 2)]
+    with open(logs[0], "w") as f:
+        proc = subprocess.Popen(
+            supervise_cmd(out_dir, "--rss-limit-gb", str(SUPERVISE_RSS_GB)),
+            cwd=workdir, env=env, stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        # wait for the restart that follows the first recycle
+        while proc.poll() is None and time.time() - t0 < \
+                SUPERVISE_TIMEOUT_S:
+            text = open(logs[0]).read()
+            if "child recycled cleanly" in text and \
+                    "supervise: attempt 2" in text and \
+                    children_of(proc.pid):
+                break
+            time.sleep(0.2)
+        first_rc = proc.poll()
+        killed = kill_supervisor(proc) if first_rc is None else []
+    t1 = time.time()
+    with open(logs[1], "w") as f:
+        proc = subprocess.Popen(supervise_cmd(out_dir), cwd=workdir,
+                                env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=SUPERVISE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None:
+                kill_supervisor(proc)
+    t2 = time.time()
+    texts = [open(fn).read() for fn in logs]
+    lines = [[ln for ln in text.splitlines()
+              if not ln.startswith("import time:")] for text in texts]
+    # "<where>: rss <GB> >= limit ..." of each recycle, where and RSS kept
+    recycled = [ln.split(" >= limit")[0][-48:] for ln in lines[0]
+                if "recycling (exit" in ln]
+    report = dict(
+        first_s=t1 - t0, second_s=t2 - t1, first_exit=first_rc,
+        killed_drivers=len(killed), recycled_at=recycled,
+        attempts=[sum("supervise: attempt" in ln for ln in x)
+                  for x in lines],
+        recycles=[sum("child recycled cleanly" in ln for ln in x)
+                  for x in lines],
+        failures=[sum("supervise: child exited rc=" in ln for ln in x)
+                  for x in lines])
+    if first_rc is not None or rc != 0 or len(killed) != 1:
+        raise SystemExit("supervise: first supervisor ended %s with %d "
+                         "children, second exited %s; last lines %s %s"
+                         % (first_rc, len(killed), rc, lines[0][-8:],
+                            lines[1][-8:]))
+    digests = artifact_digests(out_dir)
+    same = {rel: digests[rel] == dp_digests[rel] for rel in MP_ARTIFACTS}
+    loaded = loaded_by_import_log(texts[0] + texts[1])
+    log(phase="supervise", card=card, **report,
+        artifacts_equal_to_pipeline_dp=same, jax_or_falcon_tpu_modules=loaded)
+    if report["recycles"][0] < 1 or not all(same.values()) or loaded:
+        raise SystemExit("supervise: %s recycles, artifacts equal %s, "
+                         "loaded %s" % (report["recycles"], same, loaded))
+    return out_dir
+
+
+# how falcon_tpu's own tools end on --help, where that is not usage and
+# exit 0: falcon-task prints its usage and returns 2; these four take
+# --help for a path and fail to open it
+HELP_RC = {"tasks": 2, "actg_coordinate": 1, "contig_annotate": 1,
+           "ctg_link_analysis": 1, "run": 1}
+ON_ASM_DIR = ("actg_coordinate", "contig_annotate", "ctg_link_analysis")
+
+
+def stream_group(seed):
+    """One stream-mode group for fc_consensus (tests/test_mains.py's): a
+    seed read and 11 supports, noisy copies of one 2.6 kb template."""
+    from falcon_tpu_torch.utils import sim
+    r = np.random.RandomState(seed)
+    genome = sim.random_genome(3000, seed=seed + 1)
+    tmpl = np.frombuffer(genome.encode(), np.uint8)[200:2800]
+    lines = ["%09d %s" % (i, sim.mutate(tmpl, r, 0.01, 0.01, 0.01)
+                          .tobytes().decode()) for i in range(12)]
+    return "\n".join(lines + ["+ +", "- -"]) + "\n"
+
+
+def phase_mains(card, asm_dir, workdir):
+    """Every tool of falcon_tpu_torch.mains as `python -m ... --help`, all
+    started together: exit 0 with a usage text, or as falcon_tpu's own
+    tool ends (HELP_RC, a FileNotFoundError for a path tool); the path
+    tools ON_ASM_DIR again on the supervise run's 2-asm-falcon, exit 0;
+    fc_consensus in stream mode on a simulated group, byte-equal to
+    cns.runner.run_consensus in this process.  No command may import a
+    jax / falcon_tpu module."""
+    from falcon_tpu_torch.cns import runner
+    from falcon_tpu_torch.mains import consensus
+    t0 = time.time()
+    tools = sorted(f[:-3] for f in os.listdir(os.path.join(
+        REPO, "falcon_tpu_torch", "mains"))
+        if f.endswith(".py") and not f.startswith("__"))
+    env = child_env()
+    cmds = {tool: [sys.executable, "-m", "falcon_tpu_torch.mains." + tool,
+                   "--help"] for tool in tools}
+    cmds.update(("%s(asm)" % tool, [sys.executable, "-m",
+                                    "falcon_tpu_torch.mains." + tool,
+                                    asm_dir]) for tool in ON_ASM_DIR)
+    argv = ["--min-cov", "2", "--min-cov-aln", "2", "--min-n-read", "5",
+            "--output-multi", "--n-core", "0"]
+    cmds["consensus(stream)"] = [sys.executable, "-m",
+                                 "falcon_tpu_torch.mains.consensus"] + argv
+    text = stream_group(3)
+    procs = {name: subprocess.Popen(
+        c, cwd=workdir, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, c in cmds.items()}
+    res = {name: p.communicate(text if name == "consensus(stream)" else "",
+                               timeout=120)
+           for name, p in procs.items()}
+    rcs = {name: p.returncode for name, p in procs.items()}
+    bad = []
+    for name, (out, err) in res.items():
+        tool = name.split("(")[0]
+        if name == tool:
+            want = HELP_RC.get(tool, 0)
+            ok = rcs[name] == want and (
+                out.startswith("usage:") if want == 0 else
+                tool == "tasks" or "FileNotFoundError" in err)
+        else:               # a_ctg rows and contig links may be none
+            ok = rcs[name] == 0
+        if not ok or loaded_by_import_log(err):
+            bad.append(name)
+    cfg = runner.ConsensusConfig(min_cov=2, min_cov_aln=2, min_n_read=5,
+                                 output_multi=True, n_core=0)
+    buf = io.StringIO()
+    runner.run_consensus(consensus.stream_groups(io.StringIO(text)), cfg,
+                         buf)
+    stream = res["consensus(stream)"][0]
+    same = stream == buf.getvalue() and stream.startswith(">")
+    log(phase="mains", card=card, tools=len(tools), exit_codes=rcs,
+        failed=bad, consensus_stream_equal_in_process=same,
+        consensus_stream_bytes=len(stream),
+        seconds=round(time.time() - t0, 3))
+    if bad or not same:
+        raise SystemExit("mains: failed %s, consensus stream equal %s"
+                         % (bad, same))
+
+
 def run_phases(args, rng, card, clock):
     """Every phase after env, in order; returns (the kernels list, the
     jax / falcon_tpu modules each pipeline_mp child loaded)."""
@@ -1301,6 +1764,14 @@ def run_phases(args, rng, card, clock):
     log(phase="dp_buckets", hit=dp_t["phase0_cns_dp_batches"],
         checked=buckets)
     e_dp, t_dp = phase_dp_kernels(rng, card, clock, lat, buckets)
+    t_new = time.time()
+    phase_graft(card)
+    phase_consensus_mesh(rng, card)
+    with tempfile.TemporaryDirectory() as d:
+        asm = os.path.join(phase_supervise(args, d, card, dp_digests),
+                           "2-asm-falcon")
+        phase_mains(card, asm, d)
+    log(phase="slice_f_phases", seconds=round(time.time() - t_new, 3))
     t_tb = t2[max(t2, key=lambda bl: (bl[1], bl[0]))]   # largest L bucket
     t_top = t_dp[buckets[-1]]
     rows = [("K1 banded extension", "extend.cu",

@@ -22,14 +22,31 @@ the caller asked for CUDA without naming a device in a process that is not
 one of several; a named device (cuda:1, FTPU_TORCH_DEVICE=cuda:1) is a mesh
 of that device alone, and so is the process's own card
 (utils.device.process_card) in one of several processes.
+
+The consensus split (the device-DP chain of cns.device._dispatch_dp_batch
+over a mesh, falcon_tpu's shard_map blocks in __graft_entry__.py) is three
+more helpers: sharded_tb_align (K2 + K3 data-parallel over alignment
+rows), sharded_cns_accumulate (K4 data-parallel over alignment tasks, each
+device into a count buffer of its own, summed by sum_over_mesh, the psum),
+and sharded_cns_scan (K5 + K6 split over seed groups).  Each shard launches
+on its own device's current stream, and its results are copied to mesh[0]
+only after its launches were queued there.  A copy between devices waits
+on the source device's stream, so every shard's inputs are copied out of
+mesh[0] before any shard launches: a copy queued behind the first shard's
+kernels on mesh[0] would hold the other devices back until they end.
+Shards on one card stay buffers of their own.
 """
 import os
 
 import numpy as np
 import torch
 
+from ..ops import cns_dp
 from ..ops.align_cuda import extend_batch_cuda
 from ..ops.align_device import gather_pad2, gather_specs2_packed, pack_tasks
+from ..ops.align_tb_cuda import align_tb_batch_cuda
+from ..ops.cns_dp_cuda import (accumulate_tags_planes_cuda,
+                               backtrack_walk_cuda, consensus_scan_cuda)
 from ..utils.device import resolve_device
 from .distributed import want_distributed
 
@@ -161,6 +178,118 @@ def sharded_tasks_extend(mesh, tasks, chunk, L, W, end_bonus):
         parts.append(extend_batch_cuda(q, ql, t, tl, W=W,
                                        end_bonus=end_bonus))
     return _gather(parts, mesh, B)
+
+
+def sum_over_mesh(parts, mesh):
+    """falcon_tpu's psum: the partial tensors of the shards (each on any
+    device of the mesh, all of one shape and dtype) added into a new
+    tensor on mesh[0], in their own dtype.  A uint16 tensor (the count
+    buffer) adds count by count modulo 2^16, as a psum of a uint16 array
+    wraps: its int16 view is added, since two's-complement addition of 16
+    bits is addition modulo 2^16.  The buffer's 32-bit words, into which
+    K4 adds 1 << 16h, are never added as such: a carry out of a low count
+    would land in its neighbour."""
+    if not parts:
+        raise ValueError("sum_over_mesh: no parts")
+    dtype = parts[0].dtype
+    as16 = dtype == torch.uint16
+
+    def view(p):
+        return p.view(torch.int16) if as16 else p
+    acc = view(parts[0]).to(mesh[0], copy=True)
+    for p in parts[1:]:
+        if p.dtype != dtype or p.shape != parts[0].shape:
+            raise ValueError("sum_over_mesh: parts differ in dtype or shape")
+        acc += view(p).to(mesh[0])
+    return acc.view(dtype) if as16 else acc
+
+
+def sharded_tb_align(mesh, q, qlen, t, tlen, W, end_bonus=3):
+    """K2 + K3 over the mesh (falcon_tpu's shard_map of align_tb_batch over
+    'pair'): each shard's rows of the [B, L] planes (numpy arrays or
+    tensors) go to its device and run align_tb_batch_cuda there, all
+    shards queued before any is waited on.  Returns align_tb_batch's
+    (best_i, best_j, best_d, moves [ceil(2L/4), B] uint8, bases [2L, B]
+    int8) on mesh[0]; moves and bases keep the batch as their minor axis,
+    so the shards concatenate on dim 1."""
+    B = q.shape[0]
+    shards = [(_on(q[lo:hi], dev, torch.int8),
+               _on(qlen[lo:hi], dev, torch.int32),
+               _on(t[lo:hi], dev, torch.int8),
+               _on(tlen[lo:hi], dev, torch.int32))
+              for (lo, hi), dev in zip(shard_bounds(B, len(mesh)), mesh)
+              if hi > lo]
+    parts = [align_tb_batch_cuda(*x, W=W, end_bonus=end_bonus)
+             for x in shards]
+    ends = _gather([torch.stack(p[:3]) for p in parts], mesh, B)
+    moves, bases = (torch.cat([p[k].to(mesh[0]) for p in parts], 1)
+                    for k in (3, 4))
+    return ends[0], ends[1], ends[2], moves, bases
+
+
+def sharded_cns_accumulate(mesh, G, T, D, mvp, basep, bd, gidx, s2, max_diff,
+                           seeds=None, tlens=None):
+    """K4 over the mesh (falcon_tpu's shard_map of accumulate_tags with a
+    psum of the count buffer): the B alignment tasks (the minor axis of
+    mvp [P, B] and basep [4P, B], and bd, gidx, s2 [B]; numpy arrays or
+    tensors) are cut into shards; each shard's tags are folded on its
+    device into a fresh count buffer of G groups (alloc_msa), and the
+    buffers are summed on mesh[0] (sum_over_mesh).  The seeds' own tags
+    (add_self_tags, seeds [G, T], tlens [G]) are added once, on mesh[0],
+    when seeds is given.  Returns the uint16 count buffer on mesh[0]."""
+    B = mvp.shape[1]
+    shards = [(dev, _on(mvp[:, lo:hi], dev, torch.uint8),
+               _on(basep[:, lo:hi], dev, torch.int8),
+               _on(bd[lo:hi], dev, torch.int32),
+               _on(gidx[lo:hi], dev, torch.int32),
+               _on(s2[lo:hi], dev, torch.int32))
+              for (lo, hi), dev in zip(shard_bounds(B, len(mesh)), mesh)
+              if hi > lo]
+    parts = [accumulate_tags_planes_cuda(cns_dp.alloc_msa(G, T, D, dev),
+                                         *x, max_diff, T, D)
+             for dev, *x in shards]
+    msa = sum_over_mesh(parts, mesh) if parts else \
+        cns_dp.alloc_msa(G, T, D, mesh[0])
+    if seeds is not None:
+        cns_dp.add_self_tags(msa, _on(seeds, mesh[0], torch.int8),
+                             _on(tlens, mesh[0], torch.int32), T)
+    return msa
+
+
+def sharded_cns_scan(mesh, msa, G, T, D, min_cov):
+    """K5 then K6 over the mesh, split over the G seed groups
+    (falcon_tpu's shard_map of consensus_scan + backtrack + compact_emit
+    over 'pair'), for any G: shard_bounds cuts the groups.  Both regions
+    of the count buffer are group-major ([G, ...] flat), so a shard's
+    buffer is its rows of the L0 region's [G, -1] view, then its rows of
+    the Ld region's, then one zero dump slot, copied to its device; the
+    flat buffer itself is never cut (that would mix groups).  Returns
+    (emitted rows [G, 2T] uint8 and counts [G] int32 on mesh[0], as
+    backtrack_walk_cuda gives them for all G groups on one device; the
+    shards' scans, consensus_scan_cuda's outputs, each on its device)."""
+    L0SZ = cns_dp.l0_size(G, T)
+    m16 = msa.view(torch.int16)
+    l0 = m16[:L0SZ].view(G, -1)
+    ld = m16[L0SZ:L0SZ + cns_dp.ld_size(G, T, D)].view(G, -1)
+    bufs = []
+    for (lo, hi), dev in zip(shard_bounds(G, len(mesh)), mesh):
+        if hi == lo:
+            continue
+        a, b = (hi - lo) * l0.shape[1], (hi - lo) * ld.shape[1]
+        buf = torch.empty(a + b + 1, dtype=torch.int16, device=dev)
+        buf[:a].copy_(l0[lo:hi].reshape(-1))
+        buf[a:a + b].copy_(ld[lo:hi].reshape(-1))
+        buf[a + b:].zero_()
+        bufs.append((hi - lo, buf.view(torch.uint16)))
+    rows, counts, scans = [], [], []
+    for n, buf in bufs:
+        scan = consensus_scan_cuda(buf, n, T, D)
+        out, cnt = backtrack_walk_cuda(*scan, int(min_cov), n, T, D)
+        rows.append(out)
+        counts.append(cnt)
+        scans.append(scan)
+    return (torch.cat([r.to(mesh[0]) for r in rows]),
+            torch.cat([c.to(mesh[0]) for c in counts]), scans)
 
 
 class ShardedExtender:

@@ -339,7 +339,12 @@ class Pipeline:
                     pf.write("%d %d" % (done_groups + k, out_f.tell()))
                 os.replace(prog_fn + ".tmp", prog_fn)
                 system.touch_heartbeat(self.out_dir)
-                system.maybe_recycle(self.out_dir, "phase0 consensus")
+                # a marker with no group of this run is no point to recycle
+                # at: the host runner calls it once more at its end, so a
+                # driver restarted there with nothing left would exit again
+                # at once, without end (falcon_tpu's driver does so)
+                if k:
+                    system.maybe_recycle(self.out_dir, "phase0 consensus")
 
             live = (g for g in groups(done_groups) if g is not None)
             if use_dev_cns:
@@ -609,3 +614,7 @@ def main(argv=None):
     setup_logging(logger_cfg)
     Pipeline(argv[0], out_dir).run()
     return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

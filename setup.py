@@ -42,6 +42,39 @@ setup(
             "falcon-task = falcon_tpu.mains.tasks:main",
             "fc_hgap_adapt = falcon_tpu.mains.hgap_adapt:main",
             "fc_snakemake = falcon_tpu.mains.gen_snakemake:main",
+            # the port's tools, one for each of falcon_tpu's above
+            "ftpu-torch-supervise = falcon_tpu_torch.pipeline.supervise:main",
+            "ftpu-torch-consensus = falcon_tpu_torch.mains.consensus:main",
+            "ftpu-torch-ovlp-filter = falcon_tpu_torch.mains.ovlp_filter:main",
+            "ftpu-torch-ovlp-stats = falcon_tpu_torch.mains.ovlp_stats:main",
+            "ftpu-torch-ovlp-to-graph = "
+            "falcon_tpu_torch.mains.ovlp_to_graph:main",
+            "ftpu-torch-graph-to-contig = "
+            "falcon_tpu_torch.mains.graph_to_contig:main",
+            "ftpu-torch-graph-to-utgs = "
+            "falcon_tpu_torch.mains.graph_to_utgs:main",
+            "ftpu-torch-dedup-a-tigs = "
+            "falcon_tpu_torch.mains.dedup_a_tigs:main",
+            "ftpu-torch-calc-cutoff = falcon_tpu_torch.mains.calc_cutoff:main",
+            "ftpu-torch-gen-gfa-v1 = falcon_tpu_torch.mains.gen_gfa_v1:main",
+            "ftpu-torch-gen-gfa-v2 = falcon_tpu_torch.mains.gen_gfa_v2:main",
+            "ftpu-torch-collect-pread-gfa = "
+            "falcon_tpu_torch.mains.collect_pread_gfa:main",
+            "ftpu-torch-collect-contig-gfa = "
+            "falcon_tpu_torch.mains.collect_contig_gfa:main",
+            "ftpu-torch-track-reads = falcon_tpu_torch.mains.track_reads:main",
+            "ftpu-torch-fetch-reads = falcon_tpu_torch.mains.fetch_reads:main",
+            "ftpu-torch-actg-coordinate = "
+            "falcon_tpu_torch.mains.actg_coordinate:main",
+            "ftpu-torch-contig-annotate = "
+            "falcon_tpu_torch.mains.contig_annotate:main",
+            "ftpu-torch-ctg-link-analysis = "
+            "falcon_tpu_torch.mains.ctg_link_analysis:main",
+            "ftpu-torch-report-pre-assembly = "
+            "falcon_tpu_torch.mains.report_pre_assembly:main",
+            "ftpu-torch-task = falcon_tpu_torch.mains.tasks:main",
+            "ftpu-torch-hgap-adapt = falcon_tpu_torch.mains.hgap_adapt:main",
+            "ftpu-torch-snakemake = falcon_tpu_torch.mains.gen_snakemake:main",
         ],
     },
 )

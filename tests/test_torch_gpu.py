@@ -13,6 +13,7 @@ import torch
 from chip_smoke import (adversarial_counts, dp_batch, ladder_walk,
                         make_pairs, spec_batch, swept_cells_equal, tag_rows,
                         walk_cases)
+from falcon_tpu_torch import graft_entry
 from falcon_tpu_torch.cns.device import DeviceCns
 from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp
 from falcon_tpu_torch.ops import cns_dp_cuda as dpk
@@ -21,6 +22,7 @@ from falcon_tpu_torch.ops.align_device import (DeviceExtender, band_sweep,
 from falcon_tpu_torch.ops.align_tb import (align_tb_batch, pack_moves,
                                            pack_trace, unpack_trace,
                                            walk_back)
+from falcon_tpu_torch.parallel import mesh as pm
 
 pytestmark = pytest.mark.gpu
 
@@ -318,3 +320,76 @@ def test_k4_matches_twin_on_tag_rows(rng, depth, P, B):
                                         depth)
     got, ref = cns_dp.counts_i32(got), cns_dp.counts_i32(ref)
     assert torch.equal(got, ref) and int(got.sum()) > 0
+
+
+TWO = ("cuda:0", "cuda:0")     # two shards on the one card a machine has
+
+
+@pytest.mark.parametrize("W,B,L", [(256, 300, 1024), (64, 7, 2048),
+                                   (192, 9, 512)])
+def test_sharded_tb_align_matches_one_launch(rng, W, B, L):
+    """K2 + K3 over two shards of one card (and B odd: 4 + 3, 5 + 4),
+    a block-route band included, equal to one launch on all rows."""
+    args = make_pairs(rng, B, L, W)
+    mesh = pm.make_mesh(devices=TWO)
+    n = align_tb_cuda.LAUNCHES["tb_fwd"]
+    got = pm.sharded_tb_align(mesh, *args, W=W)
+    torch.cuda.synchronize()
+    assert align_tb_cuda.LAUNCHES["tb_fwd"] == n + 2
+    for g, r in zip(got, align_tb_cuda.align_tb_batch_cuda(*args, W=W)):
+        assert torch.equal(g, r)
+
+
+def test_sum_over_mesh_wraps_on_the_card(rng):
+    """uint16 counts near 2^16 summed over two shards of one card: count
+    by count modulo 2^16, the parts left as they were."""
+    host = rng.integers(0, 1 << 16, (2, 4097)).astype(np.uint16)
+    host[:, :4] = [[65535, 1, 40000, 32768]] * 2
+    parts = [torch.from_numpy(h.view(np.int16)).cuda().view(torch.uint16)
+             for h in host]
+    got = pm.sum_over_mesh(parts, pm.make_mesh(devices=TWO))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        got.view(torch.int16).cpu().numpy().view(np.uint16),
+        host.sum(0, dtype=np.uint16))
+    assert int(parts[0].view(torch.int16)[0]) == -1
+
+
+@pytest.mark.parametrize("G,T,L", [(7, 2048, 1024), (16, 4096, 2048)])
+def test_consensus_split_matches_one_card(rng, G, T, L):
+    """K4 over two shards of the tasks, summed, equals K4 on all of them
+    into one buffer; K5 + K6 over two shards of the groups (G odd: 4 + 3)
+    equal them on all groups."""
+    msa0, rest = dp_batch(rng, G, T, L, D, MAX_DIFF)
+    mesh = pm.make_mesh(devices=TWO)
+    one = dpk.accumulate_tags_planes_cuda(cns_dp.alloc_msa(G, T, D, "cuda"),
+                                          *rest)
+    n = dpk.LAUNCHES["tags"]
+    got = pm.sharded_cns_accumulate(mesh, G, T, D, *rest[:5], MAX_DIFF)
+    torch.cuda.synchronize()
+    assert dpk.LAUNCHES["tags"] == n + 2
+    assert torch.equal(got.view(torch.int16), one.view(torch.int16))
+    full = dpk.accumulate_tags_planes_cuda(msa0, *rest)
+    scan = dpk.consensus_scan_cuda(full, G, T, D)
+    rows, counts = dpk.backtrack_walk_cuda(*scan, 2, G, T, D)
+    n = dpk.LAUNCHES["cns_walk"]
+    got_rows, got_counts, scans = pm.sharded_cns_scan(mesh, full, G, T, D, 2)
+    torch.cuda.synchronize()
+    assert dpk.LAUNCHES["cns_walk"] == n + 2
+    assert torch.equal(got_rows, rows) and torch.equal(got_counts, counts)
+    assert torch.equal(torch.cat([s[0] for s in scans], 1), scan[0])
+    assert (counts[:G - 1] > 0).all()
+
+
+def test_graft_dryrun_over_two_shards_matches_one_card(rng):
+    """graft_entry.dryrun_multichip(2) over two shards of one card: every
+    stage's output equal to the same stages on cuda:0 unsplit."""
+    got = graft_entry.dryrun_multichip(2, devices=TWO)
+    ref = graft_entry.run_stages(pm.make_mesh(devices=("cuda:0",)), 2)
+    torch.cuda.synchronize()
+    for key in ("extend", "kmer_total", "aligned_bases", "msa", "rows",
+                "counts"):
+        assert torch.equal(got[key], ref[key]), key
+    np.testing.assert_array_equal(got["specs"], ref["specs"])
+    for g, r in zip(got["tb"], ref["tb"]):
+        assert torch.equal(g, r)

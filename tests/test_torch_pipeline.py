@@ -127,18 +127,29 @@ def test_port_sources_import_no_falcon_tpu():
 
 # falcon_tpu host modules that the port keeps verbatim copies of (same
 # relative path).  A copy may differ from its source in import lines and in
-# the package's name, nowhere else.  A PR that changes a copy on purpose
-# takes the file off this list and says why.  Not here, because they are
-# ports or merges and not copies: ops/native.py (builds into the port's own
-# _build/), overlap/engine.py (the port's make_device_aligner),
-# cns/device.py, pipeline/driver.py, parallel/distributed.py.
+# the package's name, nowhere else: pipeline/supervise.py's child and
+# pipeline/snakemake.py's rule run falcon_tpu_torch.pipeline.driver.  A PR
+# that changes a copy on purpose takes the file off this list and says
+# why.  Not here, because they are ports or merges and not copies:
+# ops/native.py (builds into the port's own _build/), overlap/engine.py
+# (the port's make_device_aligner), cns/device.py, pipeline/driver.py,
+# parallel/distributed.py.
 COPIES = """utils/system.py utils/pool.py utils/sim.py config.py io/__init__.py
 io/fasta.py io/readstore.py io/masking.py io/integrity.py io/ser.py
 native/falcon_native.cpp ops/kmer.py ops/align.py ops/consensus_dp.py
 overlap/table.py overlap/records.py overlap/filter.py overlap/stats.py
 cns/runner.py graph/sg.py graph/unitigs.py graph/to_contig.py
 graph/to_utgs.py graph/tiling.py graph/asm_graph.py graph/gfa.py
-graph/collect_gfa.py pipeline/stats.py""".split()
+graph/collect_gfa.py pipeline/stats.py mains/__init__.py
+mains/actg_coordinate.py mains/calc_cutoff.py mains/collect_contig_gfa.py
+mains/collect_pread_gfa.py mains/consensus.py mains/contig_annotate.py
+mains/ctg_link_analysis.py mains/dedup_a_tigs.py mains/fetch_reads.py
+mains/gen_gfa_v1.py mains/gen_gfa_v2.py mains/gen_snakemake.py
+mains/graph_to_contig.py mains/graph_to_utgs.py mains/hgap_adapt.py
+mains/ovlp_filter.py mains/ovlp_stats.py mains/ovlp_to_graph.py
+mains/report_pre_assembly.py mains/run.py mains/tasks.py
+mains/track_reads.py tracking.py compat/__init__.py compat/functional.py
+pipeline/snakemake.py pipeline/supervise.py""".split()
 
 
 def _normalised(path):
@@ -161,6 +172,21 @@ def test_copy_matches_its_source(rel):
     copy = os.path.join(REPO, "falcon_tpu_torch", rel)
     assert _normalised(copy) == _normalised(src), \
         "%s drifted from falcon_tpu/%s" % (rel, rel)
+
+
+def test_every_module_has_a_counterpart():
+    """Every .py of falcon_tpu has one at the same relative path in the
+    port, but the JAX-only ones, whose counterparts the port names
+    otherwise: the Pallas kernels (ops/align_cuda.py, ops/align_tb_cuda.py
+    and csrc/) and the JAX setup (utils/device.py)."""
+    def modules(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files
+                if f.endswith(".py")}
+    missing = modules("falcon_tpu") - modules("falcon_tpu_torch")
+    assert missing == {"ops/align_pallas.py", "ops/align_tb_pallas.py",
+                       "utils/jaxinit.py"}
 
 
 def test_copied_halves_match_their_source():

@@ -363,7 +363,7 @@ def phase_k1(rng, card, clock):
     of the block kernel, then parity, times and bounds at the (B, L) the
     pipeline's extender launches (its _batch_for) at L 1024 and 8192: at
     W_MAIN (the warp kernel) and at K1_BLOCK_BANDS (the block kernel).
-    Returns (max abs err, {L: W_MAIN's timing dict})."""
+    Returns (max abs err, {(W, L): timing dict})."""
     from falcon_tpu_torch.ops.align_cuda import extend_batch_cuda, kernel_for
     from falcon_tpu_torch.ops.align_device import band_cells, extend_batch
     from falcon_tpu_torch.overlap.engine import make_device_aligner
@@ -397,9 +397,8 @@ def phase_k1(rng, card, clock):
             cells = int(band_cells(ql, tl, W).sum())
             bnd, by = bound_ms(2 * B * L + 8 * B + 12 * B,
                                cells * OPS_PER_CELL["K1"], mhz)
-            if W == W_MAIN:
-                times[L] = dict(B=B, ms=ms, plain_ms=plain, bound_ms=bnd,
-                                bound_by=by)
+            times[(W, L)] = dict(B=B, ms=ms, plain_ms=plain, bound_ms=bnd,
+                                 bound_by=by)
             log(phase="k1_time", card=card, B=B, L=L, W=W,
                 kernel=kernel_for(W), kernel_ms=ms, plain_ms=plain,
                 band_cells=cells, sm_clock_mhz=mhz, bound_ms=bnd,
@@ -445,8 +444,11 @@ def phase_k2(rng, card, clock, lat):
     from falcon_tpu_torch.ops.align_tb import (pack_moves, pack_trace,
                                                unpack_trace, walk_back)
     cns = DeviceCns(device="cuda")
+    # the batcher's shapes, and tools/tb_compare.py's short one (its long
+    # one, (256, 16384), costs ~50 s of the plain versions; tb_compare
+    # times it)
     shapes = [(cns._batch_for(1024), 1024), (cns._batch_for(16384), 16384),
-              (1024, 1024), (256, 16384)]
+              (1024, 1024)]
     err2 = err3 = 0
     times = {}
     for B, L in shapes:
@@ -529,6 +531,8 @@ def phase_k2(rng, card, clock, lat):
 
 
 TB_BANDS = (96, 192, 512, 1024)       # the block route's bands checked
+BLOCK_ROW_BAND = 512                  # the block route's row of the kernels
+                                      # line
 TB_BANDS_LONG = (1024, 16384)         # (W, L): the long launch checked
 
 
@@ -538,31 +542,43 @@ def phase_tb_bands(rng, card, clock, lat):
     (B, L) DeviceCns._batch_for launches at L 1024 for every band of
     TB_BANDS and at TB_BANDS_LONG (W 1024, whose trace per row is the
     largest, so the trace budget sets B there: 256 rows at L 16384);
-    then K2 and K3 timed apart with bounds and K3's chain floor (its
-    walk reads device memory a step)."""
+    then K2 and K3 timed apart with bounds and K3's chain floor: a
+    shared-memory read a walked diagonal, what its walk reads (the
+    device read's floor logged beside it).  The plain versions are
+    band_sweep and walk_back, each run once.  Returns (max abs err,
+    {(W, L): {"K2": timing dict, "K3": timing dict}})."""
     from falcon_tpu_torch.cns.device import DeviceCns
     from falcon_tpu_torch.ops import align_tb_cuda as k
-    from falcon_tpu_torch.ops.align_device import band_cells
-    from falcon_tpu_torch.ops.align_tb import align_tb_batch
+    from falcon_tpu_torch.ops.align_device import band_cells, band_sweep
+    from falcon_tpu_torch.ops.align_tb import pack_moves, walk_back
     runs = [(W, 1024) for W in TB_BANDS] + [TB_BANDS_LONG]
+    err = 0
+    times = {}
     for W, L in runs:
         cns = DeviceCns(device="cuda", W=W)
         B = cns._batch_for(L)
         args = make_pairs(rng, B, L, W)
         q, ql, t, tl = args
-        ref, plain = cuda_ms(lambda: align_tb_batch(*args, W=W), warm=False)
+        (p_ends, planes), p_fwd = cuda_ms(
+            lambda: band_sweep(*args, W, 3, keep_moves=True), warm=False)
+        (p_moves, p_bases), p_bwd = cuda_ms(
+            lambda: walk_back(q, p_ends, planes, W), warm=False)
+        del planes
+        ref = list(p_ends) + [pack_moves(p_moves), p_bases]
+        del p_moves
         got = k.align_tb_batch_cuda(*args, W=W)
         torch.cuda.synchronize()
         e = max_err(got, ref)
         eq = all(torch.equal(g, r) for g, r in zip(got, ref))
         log(phase="tb_bands_parity", W=W, L=L, B=B, route=k.kernel_for(W),
-            max_abs_err=e, bit_equal=eq,
+            cells_a_lane=k.trace_cells(W), max_abs_err=e, bit_equal=eq,
             trace_bytes=B * k.trace_row_bytes(L, W),
             moves_budget=cns.moves_budget)
         if not eq:
             raise SystemExit("K2/K3 (%s route) differ from align_tb_batch at "
                              "W=%d B=%d L=%d" % (k.kernel_for(W), W, B, L))
-        del ref, got
+        err = max(err, e)
+        del ref, got, p_ends, p_bases
         clock.mark()
         (ends, trace), fwd = cuda_ms(
             lambda: k.tb_forward_cuda(*args, W, 3), reps=3)
@@ -576,27 +592,34 @@ def phase_tb_bands(rng, card, clock, lat):
         trace_bytes = int(steps.sum()) * W // 4
         b2, by2 = bound_ms(2 * B * L + 8 * B + 12 * B + trace_bytes,
                            cells * OPS_PER_CELL["K2"], mhz)
-        # a walked step reads the 8 bytes of its cell's two plane words
-        # and at most one q byte
+        # a walked step reads the 4-byte trace word of its cell and at
+        # most one q byte
         walked = sum(int((((mv >> sh) & 3) != 3).sum()) for sh in (0, 2, 4, 6))
-        b3, by3 = bound_ms(8 * walked + int(ends[0].sum()) + 12 * B +
+        b3, by3 = bound_ms(4 * walked + int(ends[0].sum()) + 12 * B +
                            2 * L * B * 5 // 4, walked * OPS_PER_WALK_STEP,
                            mhz)
         longest = int((ends[0] + ends[1]).max())
-        c3 = chain_ms(longest, lat["global"], mhz)
+        c3 = chain_ms(longest, lat["shared"], mhz)
+        times[(W, L)] = dict(
+            K2=dict(ms=fwd, plain_ms=p_fwd, bound_ms=b2, bound_by=by2),
+            K3=dict(ms=bwd, plain_ms=p_bwd, bound_ms=b3, bound_by=by3))
         log(phase="tb_bands_time", card=card, B=B, L=L, W=W,
-            route=k.kernel_for(W), sm_clock_mhz=mhz, k2_ms=fwd,
-            k2k3_plain_ms=plain, k2_bound_ms=b2, k2_bound_by=by2,
+            route=k.kernel_for(W), cells_a_lane=k.trace_cells(W),
+            sm_clock_mhz=mhz, k2_ms=fwd, k2_plain_ms=p_fwd, k2_bound_ms=b2,
+            k2_bound_by=by2,
             k2_share_of_bound=share_of_bound("K2 W=%d %dx%d" % (W, B, L),
                                              fwd, b2),
             band_cells=cells, trace_bytes=trace_bytes, k3_ms=bwd,
-            k3_bound_ms=b3, k3_bound_by=by3,
+            k3_plain_ms=p_bwd, k3_bound_ms=b3, k3_bound_by=by3,
             k3_share_of_bound=share_of_bound("K3 W=%d %dx%d" % (W, B, L),
                                              bwd, b3),
-            k3_chain_floor_ms=c3, walked_steps=walked,
-            longest_walk_diagonals=longest)
+            k3_chain_floor_ms=c3,
+            k3_chain_floor_device_read_ms=chain_ms(longest, lat["global"],
+                                                   mhz),
+            walked_steps=walked, longest_walk_diagonals=longest)
         del args, q, ql, t, tl, ends, mv
         torch.cuda.empty_cache()
+    return err, times
 
 
 SHARDED_K1 = ((16384, 1024), (4096, 8192))   # (B, L), W_MAIN
@@ -708,6 +731,15 @@ def phase_sharded_k1(rng, card):
                              % (list(mesh), per_dev))
 
 
+def block_counters():
+    """The block routes' launch counters (no default run takes them), by
+    kernel: (LAUNCHES dict, key)."""
+    from falcon_tpu_torch.ops import align_cuda, align_tb_cuda
+    return {"K1 block": (align_cuda.LAUNCHES, "extend_block"),
+            "K2 block": (align_tb_cuda.LAUNCHES, "tb_fwd_block"),
+            "K3 block": (align_tb_cuda.LAUNCHES, "tb_bwd_block")}
+
+
 def counters():
     """Every kernel's launch counter, by kernel: (LAUNCHES dict, key)."""
     from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp_cuda
@@ -755,17 +787,19 @@ def write_run(args, workdir, name):
 def phase_pipeline(args, workdir, dp, device="cuda"):
     """The port's Pipeline on the simulated genome, consensus through the
     device-DP path (dp) or the host-MSA path; returns (launches by kernel,
-    timings, artifact digests).  The DP run must launch every kernel, the
-    host-MSA run K1-K3 and none of K4-K6.  With the bare device "cuda"
-    the extender cuts K1's batches over every visible GPU; a named one
-    ("cuda:0") keeps them on that card."""
+    timings, artifact digests; the launches include the block routes',
+    which the default band never takes).  The DP run must launch every
+    kernel, the host-MSA run K1-K3 and none of K4-K6.  With the bare
+    device "cuda" the extender cuts K1's batches over every visible GPU; a
+    named one ("cuda:0") keeps them on that card."""
     from falcon_tpu_torch.pipeline.driver import Pipeline
     from falcon_tpu_torch.utils import simcheck
     name = ("pipeline_dp" if dp else "pipeline") + \
         ("" if device == "cuda" else "_one_card")
     genome = write_run(args, workdir, name)
     cnt = counters()
-    for d, key in cnt.values():
+    blk = block_counters()
+    for d, key in list(cnt.values()) + list(blk.values()):
         d[key] = 0
     env = os.environ.get("FTPU_CNS_DP")
     os.environ["FTPU_CNS_DP"] = "1" if dp else "0"
@@ -783,9 +817,10 @@ def phase_pipeline(args, workdir, dp, device="cuda"):
         else:
             os.environ["FTPU_CNS_DP"] = env
     launches = {k: d[key] for k, (d, key) in cnt.items()}
+    block = {k: d[key] for k, (d, key) in blk.items()}
     log(phase=name + "_timings", wall_s=round(time.time() - t0, 3),
         **pipe.timings)
-    log(phase=name + "_launches", **launches)
+    log(phase=name + "_launches", **launches, **block)
     prof = os.environ.get("FTPU_PROFILE")
     if prof:
         # the profiled run's device time by kernel, largest first:
@@ -803,7 +838,7 @@ def phase_pipeline(args, workdir, dp, device="cuda"):
             score["mean_identity"] < 0.995:
         raise SystemExit("%s: assembly below bar: recovery %.4f identity %s"
                          % (name, score["recovery"], score["mean_identity"]))
-    return launches, pipe.timings, artifact_digests(workdir)
+    return dict(launches, **block), pipe.timings, artifact_digests(workdir)
 
 
 def phase_pipeline_mesh(args, card, dp_t, dp_digests):
@@ -1745,7 +1780,7 @@ def run_phases(args, rng, card, clock):
     e1, t1 = phase_k1(rng, card, clock)
     phase_sharded_k1(rng, card)
     e2, e3, t2 = phase_k2(rng, card, clock, lat)
-    phase_tb_bands(rng, card, clock, lat)
+    e_bands, t_bands = phase_tb_bands(rng, card, clock, lat)
     with tempfile.TemporaryDirectory() as d:
         launches, host_t, _ = phase_pipeline(args, d, dp=False)
     with tempfile.TemporaryDirectory() as d:
@@ -1774,15 +1809,26 @@ def run_phases(args, rng, card, clock):
     log(phase="slice_f_phases", seconds=round(time.time() - t_new, 3))
     t_tb = t2[max(t2, key=lambda bl: (bl[1], bl[0]))]   # largest L bucket
     t_top = t_dp[buckets[-1]]
+    t_blk = t_bands[(BLOCK_ROW_BAND, 1024)]
     rows = [("K1 banded extension", "extend.cu",
              "falcon_tpu/ops/align_pallas.py:50", launches["K1"], e1,
-             t1[1024]),
+             t1[(W_MAIN, 1024)]),
             ("K2 traceback forward", "align_tb.cu",
              "falcon_tpu/ops/align_tb_pallas.py:39", launches["K2"], e2,
              t_tb["K2"]),
             ("K3 traceback walk", "align_tb.cu",
              "falcon_tpu/ops/align_tb_pallas.py:151", launches["K3"], e3,
-             t_tb["K3"])]
+             t_tb["K3"]),
+            # the block routes, at a band the default run never takes
+            ("K1 banded extension, block kernel W %d" % K1_BLOCK_BANDS[0],
+             "extend.cu", "falcon_tpu/ops/align_pallas.py:50",
+             launches["K1 block"], e1, t1[(K1_BLOCK_BANDS[0], 1024)]),
+            ("K2 traceback forward, block route W %d" % BLOCK_ROW_BAND,
+             "align_tb.cu", "falcon_tpu/ops/align_tb_pallas.py:39",
+             launches["K2 block"], e_bands, t_blk["K2"]),
+            ("K3 traceback walk, block route W %d" % BLOCK_ROW_BAND,
+             "align_tb.cu", "falcon_tpu/ops/align_tb_pallas.py:151",
+             launches["K3 block"], e_bands, t_blk["K3"])]
     rows += [(name, "cns_dp.cu", "falcon_tpu/ops/cns_dp.py:%d" % line,
               launches_dp[kk], e_dp[kk], t_top[kk])
              for kk, name, line in (("K4", "K4 tag accumulation", 203),

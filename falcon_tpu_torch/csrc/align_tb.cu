@@ -40,13 +40,35 @@
 // lane's trace word, so it exists for W = 32, 64, 128 and 256 only.  Every
 // other multiple of 32 up to 1024 takes the block route
 // (ops.align_tb_cuda.kernel_for), which keeps no band the reference takes
-// out of reach: K2 is band_dp.cuh's block-per-row sweep with its two-bit
-// trace (W/4 bytes a step, the same bytes as the warp route's, laid out as
-// two bit planes), and K3 walks each row with one thread, reading the pair
-// of plane words that holds its cell straight from device memory.  Each
-// step of that walk waits on its own load, so the latency of those loads
-// sets the block route's K3 time; it is the simple form, not a tuned one.
-#include "band_dp.cuh"
+// out of reach.  Its first form, a block of W threads a row with a barrier
+// on every anti-diagonal and a thread walking each row's trace in device
+// memory, ran 14-20x its bound in K2 and ~1,400 clocks a walked step in K3:
+// the barrier, the shared-memory round trip of every operand and the
+// per-cell global reads bound K2, the latency of a device read every step
+// bound K3.  The block route is now the warp route's design at any W:
+// - K2: a row's band lies in the registers of ceil(W/32C) warps of C
+//   cells a lane (ops.align_tb_cuda.trace_cells).  Where 32 lanes of at
+//   most 16 cells hold the band it is one warp, its top lanes padding
+//   (W 96: 24 lanes of 4); a per-step exchange costs more than idle lanes,
+//   so one warp measured faster wherever it fits.  Wider bands are warps
+//   of 8 cells, a block of them a row, each running tb_sweep.cuh's step on
+//   its segment (registers, shuffles, its own q/t rings, the step forms
+//   chosen per warp) and taking the one cell a step it needs from each
+//   neighbouring segment through a tagged shared-memory word: a warp waits
+//   on its two neighbours' previous step, never on the row, and no barrier
+//   spans the band.  A segment outside [0, qlen] x [0, tlen] skips its
+//   arithmetic, and one that cannot be reached yet or never again does not
+//   step at all, which at W = 1024 and reads of 512-1024 is much of the
+//   band's first and last steps.  What bounds it now is the step's
+//   latency plus the exchange (a neighbour's word is read, on the
+//   dependent chain, every step).  The trace keeps the warp route's
+//   lane-packed words: trace[b][(s-1)/G][x], G = 16/C, word x holding band
+//   cells xC .. xC+C-1 (W/4 bytes a step, as before).
+// - K3: the warp walk above on that layout.  Since a walked step moves the
+//   band lane by at most one, the window after the one being walked stays
+//   within 64 lanes of where the walk stands when its copy is issued, so a
+//   window's copy is those lanes' words alone (FTT_TB_REACH), about 100
+//   16-byte pieces whatever W, not the W/4 bytes of each of its 32 steps.
 #include "tb_sweep.cuh"
 
 #define FTT_TB_FWD_ROWS 4      // K2: warps (rows) per block
@@ -230,73 +252,6 @@ ftt_tb_bwd_kernel(const unsigned* __restrict__ trace,
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// K2, block route: a block of W threads per row (band_dp.cuh with TRACE).
-__global__ void __launch_bounds__(1024)
-ftt_tb_fwd_block_kernel(const int8_t* __restrict__ q,
-                        const int8_t* __restrict__ t,
-                        const int* __restrict__ qlen,
-                        const int* __restrict__ tlen, int B, int L, int W,
-                        int end_bonus, int* __restrict__ ends,
-                        unsigned* __restrict__ trace) {
-    ftt_band_dp<true>(q, t, qlen, tlen, B, L, W, end_bonus, ends, trace);
-}
-
-#define FTT_TB_BWD_BLOCK_THREADS 64
-
-// K3, block route: thread b walks row b of the block route's trace
-// ([B, 2L, W/16] words) with the warp route's rules (the move stream packed
-// four to a byte, 3 past the walk and as the padding of a last byte when
-// 2L % 4 != 0; an out-of-band cell reads as move 0, base 0).
-__global__ void __launch_bounds__(FTT_TB_BWD_BLOCK_THREADS)
-ftt_tb_bwd_block_kernel(const unsigned* __restrict__ trace,
-                        const int8_t* __restrict__ q,
-                        const int* __restrict__ ends, int B, int L, int W,
-                        uint8_t* __restrict__ moves,
-                        int8_t* __restrict__ bases) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int words = W / 16;
-    const int S = 2 * L;
-    const unsigned* trow = trace + (size_t)b * S * words;
-    const int8_t* qr = q + (size_t)b * L;
-    int i = ends[b];
-    int j = ends[B + b];
-    bool done = (i | j) == 0;
-    unsigned byte = 0;
-    for (int s = S; s >= 1; --s) {
-        const int k = S - s;             // index in the END->START stream
-        int m = 3, base = 4;
-        if (!done && i + j == s) {
-            const int l = i - ftt_band_off(s, W);
-            // q[i-1] is read beside the trace words, not after the move
-            // they hold: the step then waits on one load, not two in a row
-            const int qv = (i >= 1 && i <= L) ? min((int)qr[i - 1], 4) : 4;
-            if ((unsigned)l < (unsigned)W) {
-                const uint2 w = *(const uint2*)(
-                    trow + (size_t)(s - 1) * words + (l >> 5) * 2);
-                m = ((w.x >> (l & 31)) & 1) | (((w.y >> (l & 31)) & 1) << 1);
-                if (m != 1) base = qv;
-            } else {
-                m = 0;
-                base = 0;
-            }
-            i -= (m & 1) ^ 1;            // diag or left consumes q
-            j -= ((m >> 1) & 1) ^ 1;     // diag or up consumes t
-            done = (i | j) == 0;
-        }
-        byte |= (unsigned)m << (2 * (k & 3));
-        if ((k & 3) == 3) {
-            moves[(size_t)(k >> 2) * B + b] = (uint8_t)byte;
-            byte = 0;
-        }
-        bases[(size_t)(s - 1) * B + b] = (int8_t)base;
-    }
-    if (S & 3) {
-        for (int f = S & 3; f < 4; ++f) byte |= 3u << (2 * f);
-        moves[(size_t)(S >> 2) * B + b] = (uint8_t)byte;
-    }
-}
-
 template <int C>
 static int ftt_tb_fwd_launch(const void* q, const void* t, const void* qlen,
                              const void* tlen, int B, int L, int end_bonus,
@@ -365,29 +320,302 @@ extern "C" int ftt_tb_bwd(const void* trace, const void* q, const void* ends,
     return (int)cudaErrorInvalidValue;
 }
 
-// The block route: W any multiple of 32 up to 1024, L any.  ftt_tb_fwd_block
-// takes ftt_tb_fwd's arguments with trace [B, 2L, W/16] int32;
-// ftt_tb_bwd_block ftt_tb_bwd's, with moves [ceil(2L/4), B] uint8.
-extern "C" int ftt_tb_fwd_block(const void* q, const void* t,
-                                const void* qlen, const void* tlen, int B,
-                                int L, int W, int end_bonus, void* ends,
-                                void* trace, void* stream) {
-    if (W % 32 || W < 32 || W > 1024) return (int)cudaErrorInvalidValue;
-    const size_t smem = 3 * (size_t)(W + 4) * sizeof(int);
-    ftt_tb_fwd_block_kernel<<<B, W, smem, (cudaStream_t)stream>>>(
-        (const int8_t*)q, (const int8_t*)t, (const int*)qlen,
-        (const int*)tlen, B, L, W, end_bonus, (int*)ends, (unsigned*)trace);
+// K2, block route: one row a block, nw = blockDim.x / 32 warps each
+// sweeping a segment of 32C cells (tb_sweep.cuh ftt_tb_seg_sweep); trace
+// [B, ceil(2L/G), W/C] words.  Dynamic shared memory: FTT_TB_SEG_SMEM.
+#define FTT_TB_SEG_WARPS 4      // at most 4 segments a row (W <= 1024)
+#define FTT_TB_SEG_SMEM(C, nw) ((size_t)(nw) * (32 + FTT_TB_WARP_SMEM(C)))
+
+template <int C, bool EXCH>
+__global__ void __launch_bounds__(32 * FTT_TB_SEG_WARPS)
+ftt_tb_fwd_seg_kernel(const int8_t* __restrict__ q,
+                      const int8_t* __restrict__ t,
+                      const int* __restrict__ qlen,
+                      const int* __restrict__ tlen, int B, int L, int W,
+                      int end_bonus, int* __restrict__ ends,
+                      unsigned* __restrict__ trace) {
+    constexpr int G = FTT_TB_GROUP(C);
+    extern __shared__ __align__(16) unsigned char seg_smem[];
+    const int nw = blockDim.x >> 5;
+    const int w = threadIdx.x >> 5;
+    const int b = blockIdx.x;
+    FttTbSeg seg;
+    seg.W = W;
+    seg.w = w;
+    seg.nw = nw;
+    seg.edges = (volatile unsigned*)seg_smem;            // [2][nw][2]
+    seg.red = (int*)(seg_smem + 16 * nw);                // [nw][4]
+    unsigned char* rings =
+        seg_smem + 32 * nw + (size_t)w * FTT_TB_WARP_SMEM(C);
+    const size_t row_words = (size_t)((2 * L + G - 1) / G) * (W / C);
+    ftt_tb_seg_sweep<C, EXCH>(q + (size_t)b * L, t + (size_t)b * L, qlen[b],
+                              tlen[b], L, end_bonus,
+                              trace + b * row_words + 32 * w, rings, seg);
+    __syncthreads();
+    // the warps' bests -> one: highest score, earliest s, lowest i
+    if (threadIdx.x == 0) {
+        int bs = FTT_NEG, bst = 0, bi = 0, bd = 0;
+        for (int k = 0; k < nw; ++k) {
+            const int* r = seg.red + 4 * k;
+            if (r[0] > bs || (r[0] == bs && r[0] > FTT_NEG &&
+                              (r[1] < bst || (r[1] == bst && r[2] < bi)))) {
+                bs = r[0]; bst = r[1]; bi = r[2]; bd = r[3];
+            }
+        }
+        const bool found = bs > FTT_NEG;
+        ends[b] = found ? bi : 0;
+        ends[B + b] = found ? bst - bi : 0;
+        ends[2 * B + b] = found ? bd : 0;
+    }
+}
+
+// K3, block route: the warp walk of ftt_tb_bwd_kernel (same outputs, same
+// rules, 8 rows a block, windows of 32 anti-diagonals counted down from
+// 2L) on the block route's trace.  A window's steps touch at most
+// FTT_TB_WIN / G + 1 trace groups (2L need not be a multiple of G), and
+// of each group it stages FTT_TB_SPAN(C) words from x0, the 16-byte-aligned
+// word of the lane FTT_TB_REACH below the walk's lane l_ref when the copy
+// is issued: the lanes within FTT_TB_REACH of l_ref, which holds every lane
+// the walk reads through the window it is walking and the next one (at
+// most 63 anti-diagonals away, a lane each).  Steps before s = 1 and bytes
+// past ceil(2L/4) are not stored.
+#define FTT_TB_REACH 64
+#define FTT_TB_SPAN(C) (4 * (2 * FTT_TB_REACH / (4 * (C)) + 1))
+#define FTT_TB_WGROUPS(C) (FTT_TB_WIN / FTT_TB_GROUP(C) + 1)
+#define FTT_TB_BWD_BLOCK_SMEM(C)                                        \
+    ((size_t)FTT_TB_BWD_ROWS * 2 * FTT_TB_WGROUPS(C) * FTT_TB_SPAN(C) *  \
+         sizeof(unsigned) +                                              \
+     2 * FTT_TB_BWD_ROWS * (2 * sizeof(unsigned) + FTT_TB_BASE_PITCH))
+
+template <int C>
+__global__ void __launch_bounds__(32 * FTT_TB_BWD_ROWS)
+ftt_tb_bwd_block_kernel(const unsigned* __restrict__ trace,
+                        const int8_t* __restrict__ q,
+                        const int* __restrict__ ends, int B, int L, int W,
+                        uint8_t* __restrict__ moves,
+                        int8_t* __restrict__ bases) {
+    constexpr int LOG2C = C == 4 ? 2 : C == 8 ? 3 : 4;
+    constexpr int G = FTT_TB_GROUP(C);
+    constexpr int LOG2G = 4 - LOG2C;
+    constexpr int SPAN = FTT_TB_SPAN(C);
+    constexpr int NCH = SPAN / 4;                   // 16-byte pieces a group
+    constexpr int WIN_WORDS = FTT_TB_WGROUPS(C) * SPAN;
+    constexpr int ROWS = FTT_TB_BWD_ROWS;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    unsigned* win = (unsigned*)smem + (size_t)warp * 2 * WIN_WORDS;
+    unsigned* st_moves =
+        (unsigned*)smem + (size_t)ROWS * 2 * WIN_WORDS;      // [2][ROWS][2]
+    int8_t* st_bases = (int8_t*)(st_moves + 2 * ROWS * 2);
+
+    const int b0 = blockIdx.x * ROWS;
+    const int b = b0 + warp;
+    const bool live = b < B;
+    int i = live ? ends[b] : 0;
+    int j = live ? ends[B + b] : 0;
+    const int s_start = i + j;
+    bool done = s_start == 0;
+    const int S = 2 * L;
+    const int NX = W >> LOG2C;                      // trace words a group
+    const int NG = (S + G - 1) >> LOG2G;            // groups a row
+    const unsigned* trow = trace + (size_t)(live ? b : 0) * NG * NX;
+    const int8_t* qr = q + (size_t)(live ? b : 0) * L;
+    const int n_win = (S + FTT_TB_WIN - 1) / FTT_TB_WIN;
+    const int n_bytes = (S + 3) >> 2;
+    const int t_row = threadIdx.x % ROWS;
+    const int t_col = threadIdx.x / ROWS;
+
+    // window n covers anti-diagonals S - 32n - 31 .. S - 32n, whose steps
+    // lie in groups g0 .. g0 + FTT_TB_WGROUPS - 1; copies their words from
+    // x0 into dst and returns x0
+    auto stage = [&](int n, int l_ref, unsigned* dst) {
+        const int g0 = (S - FTT_TB_WIN * (n + 1)) >> LOG2G;     // floor
+        const int x0 = max((l_ref - FTT_TB_REACH) >> LOG2C, 0) & ~3;
+        for (int k = lane; k < FTT_TB_WGROUPS(C) * NCH; k += 32) {
+            const int gg = k / NCH;
+            const int u = k - gg * NCH;
+            const int g = g0 + gg;
+            const int x = x0 + 4 * u;
+            if (g >= 0 && g < NG && x < NX)
+                ftt_cp_async16(dst + gg * SPAN + 4 * u,
+                               trow + (size_t)g * NX + x);
+        }
+        return x0;
+    };
+    const int n_first = (S - s_start) / FTT_TB_WIN;
+    int x0_cur = 0, x0_next = 0;
+    if (!done)
+        x0_cur = stage(n_first, i - ftt_tb_off(s_start, W),
+                       win + (n_first & 1) * WIN_WORDS);
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    for (int n = 0; n < n_win; ++n) {
+        const int s_hi = S - FTT_TB_WIN * n;
+        const int par = n & 1;
+        int my_base = 4;
+        unsigned m_lo = ~0u, m_hi = ~0u;         // steps 0-15, 16-31
+        if (!done && n >= n_first) {             // per warp
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+            __syncwarp();
+            if (n + 1 < n_win)                   // the next window, in flight
+                x0_next = stage(n + 1, i - ftt_tb_off(i + j, W),
+                                win + (par ^ 1) * WIN_WORDS);
+            asm volatile("cp.async.commit_group;\n" ::);
+            // the walk loses at most one i a step: lane k holds q[i_top-1-k]
+            const int i_top = i;
+            const int qi = i_top - 1 - lane;
+            const int qv = (qi >= 0 && qi < L) ? qr[qi] : 4;
+            const unsigned* buf = win + par * WIN_WORDS;
+            const int g0 = (s_hi - FTT_TB_WIN) >> LOG2G;
+            unsigned oob = 0;
+            m_lo = m_hi = 0;
+#pragma unroll
+            for (int k = 0; k < FTT_TB_WIN; ++k) {
+                const int s = s_hi - k;
+                unsigned m = 3;
+                if (!done && i + j == s) {
+                    const int l = i - ftt_tb_off(s, W);
+                    if ((unsigned)l < (unsigned)W) {
+                        // step s: group (s-1) / G, field
+                        // ((s-1) % G) * C + l % C of word l / C
+                        const int row =
+                            (((s - 1) >> LOG2G) - g0) * SPAN - x0_cur;
+                        const unsigned w = buf[row + (l >> LOG2C)];
+                        m = (w >> (2 * (((s - 1) & (G - 1)) * C +
+                                        (l & (C - 1))))) & 3;
+                    } else {
+                        m = 0;
+                        oob |= 1u << k;
+                    }
+                    i -= (m & 1) ^ 1;            // diag or left consumes q
+                    j -= ((m >> 1) & 1) ^ 1;     // diag or up consumes t
+                    done = (i | j) == 0;
+                }
+                if (k < 16) m_lo |= m << (2 * k);
+                else m_hi |= m << (2 * (k - 16));
+            }
+            x0_cur = x0_next;
+            const int sh = 2 * (lane & 15);
+            const unsigned my_m = ((lane < 16 ? m_lo : m_hi) >> sh) & 3;
+            const unsigned eat_lo = ~m_lo & 0x55555555u;
+            const unsigned eat_hi = ~m_hi & 0x55555555u;
+            const unsigned below = (1u << sh) - 1;
+            const int before = lane < 16
+                ? __popc(eat_lo & below)
+                : __popc(eat_lo) + __popc(eat_hi & below);
+            const int my_i = i_top - before;
+            const int qc = __shfl_sync(FTT_TB_FULL, qv, before);
+            if (my_m == 3 || my_m == 1) my_base = 4;
+            else if ((oob >> lane) & 1) my_base = 0;
+            else my_base = my_i >= 1 ? min(qc, 4) : 4;
+        }
+        // stage this window's output, then store it with the batch minor
+        if (lane == 0) {
+            st_moves[(par * ROWS + warp) * 2] = m_lo;
+            st_moves[(par * ROWS + warp) * 2 + 1] = m_hi;
+        }
+        st_bases[(par * ROWS + warp) * FTT_TB_BASE_PITCH + lane] =
+            (int8_t)my_base;
+        __syncthreads();
+        if (b0 + t_row < B) {
+            const int sb = s_hi - 1 - t_col;
+            if (sb >= 0)
+                bases[(size_t)sb * B + b0 + t_row] =
+                    st_bases[(par * ROWS + t_row) * FTT_TB_BASE_PITCH + t_col];
+            const int byte = n * (FTT_TB_WIN / 4) + t_col;
+            if (t_col < FTT_TB_WIN / 4 && byte < n_bytes)
+                moves[(size_t)byte * B + b0 + t_row] =
+                    (uint8_t)(st_moves[(par * ROWS + t_row) * 2 +
+                                       (t_col >> 2)] >> (8 * (t_col & 3)));
+        }
+    }
+    // a row that ended inside a window left the next one in flight
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int C>
+static int ftt_tb_fwd_seg_launch(const void* q, const void* t,
+                                 const void* qlen, const void* tlen, int B,
+                                 int L, int W, int end_bonus, void* ends,
+                                 void* trace, cudaStream_t stream) {
+    const int nw = (W + 32 * C - 1) / (32 * C);
+    if (nw > FTT_TB_SEG_WARPS) return (int)cudaErrorInvalidValue;
+    const size_t smem = FTT_TB_SEG_SMEM(C, nw);
+    if (nw == 1)
+        ftt_tb_fwd_seg_kernel<C, false><<<B, 32, smem, stream>>>(
+            (const int8_t*)q, (const int8_t*)t, (const int*)qlen,
+            (const int*)tlen, B, L, W, end_bonus, (int*)ends,
+            (unsigned*)trace);
+    else
+        ftt_tb_fwd_seg_kernel<C, true><<<B, 32 * nw, smem, stream>>>(
+            (const int8_t*)q, (const int8_t*)t, (const int*)qlen,
+            (const int*)tlen, B, L, W, end_bonus, (int*)ends,
+            (unsigned*)trace);
     return (int)cudaGetLastError();
 }
 
-extern "C" int ftt_tb_bwd_block(const void* trace, const void* q,
-                                const void* ends, int B, int L, int W,
-                                void* moves, void* bases, void* stream) {
-    if (W % 32 || W < 32 || W > 1024) return (int)cudaErrorInvalidValue;
-    const int threads = FTT_TB_BWD_BLOCK_THREADS;
-    ftt_tb_bwd_block_kernel<<<(B + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
+template <int C>
+static int ftt_tb_bwd_block_launch(const void* trace, const void* q,
+                                   const void* ends, int B, int L, int W,
+                                   void* moves, void* bases,
+                                   cudaStream_t stream) {
+    const size_t smem = FTT_TB_BWD_BLOCK_SMEM(C);
+    cudaError_t err = cudaFuncSetAttribute(
+        ftt_tb_bwd_block_kernel<C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (B + FTT_TB_BWD_ROWS - 1) / FTT_TB_BWD_ROWS;
+    ftt_tb_bwd_block_kernel<C><<<blocks, 32 * FTT_TB_BWD_ROWS, smem,
+                                 stream>>>(
         (const unsigned*)trace, (const int8_t*)q, (const int*)ends, B, L, W,
         (uint8_t*)moves, (int8_t*)bases);
     return (int)cudaGetLastError();
+}
+
+// The block route: W any multiple of 32 up to 1024 with C = 4, 8 or 16
+// cells a lane (W/C a multiple of 4, so that a group of the trace is whole
+// 16-byte pieces for K3; at most 4 warps a row), L any.  ftt_tb_fwd_block
+// takes ftt_tb_fwd's arguments and C, with trace [B, ceil(2L/G), W/C]
+// int32, G = 16/C; W 512 at C 16 runs the warp route's kernel, whose
+// trace is that layout, any other band ceil(W/32C) warps a row.
+// ftt_tb_bwd_block takes ftt_tb_bwd's and C, with moves [ceil(2L/4), B]
+// uint8.
+static bool ftt_tb_block_shape(int W, int C) {
+    return W % 32 == 0 && W >= 32 && W <= 1024 &&
+           (C == 4 || C == 8 || C == 16) && W % (4 * C) == 0;
+}
+
+extern "C" int ftt_tb_fwd_block(const void* q, const void* t,
+                                const void* qlen, const void* tlen, int B,
+                                int L, int W, int C, int end_bonus,
+                                void* ends, void* trace, void* stream) {
+    if (!ftt_tb_block_shape(W, C)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (W == 32 * C && C == 16)          // 80 registers, not the sweep's 117
+        return ftt_tb_fwd_launch<16>(q, t, qlen, tlen, B, L, end_bonus, ends,
+                                     trace, st);
+    switch (C) {
+    case 4: return ftt_tb_fwd_seg_launch<4>(q, t, qlen, tlen, B, L, W,
+                                            end_bonus, ends, trace, st);
+    case 8: return ftt_tb_fwd_seg_launch<8>(q, t, qlen, tlen, B, L, W,
+                                            end_bonus, ends, trace, st);
+    default: return ftt_tb_fwd_seg_launch<16>(q, t, qlen, tlen, B, L, W,
+                                              end_bonus, ends, trace, st);
+    }
+}
+
+extern "C" int ftt_tb_bwd_block(const void* trace, const void* q,
+                                const void* ends, int B, int L, int W, int C,
+                                void* moves, void* bases, void* stream) {
+    if (!ftt_tb_block_shape(W, C)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (C) {
+    case 4: return ftt_tb_bwd_block_launch<4>(trace, q, ends, B, L, W,
+                                              moves, bases, st);
+    case 8: return ftt_tb_bwd_block_launch<8>(trace, q, ends, B, L, W,
+                                              moves, bases, st);
+    default: return ftt_tb_bwd_block_launch<16>(trace, q, ends, B, L, W,
+                                                moves, bases, st);
+    }
 }

@@ -93,6 +93,36 @@ __device__ __forceinline__ int ftt_tb_need_t(int s, int W) {
     return s - ftt_tb_off(s, W);
 }
 
+// The block route's share of a row (ftt_tb_seg_sweep): segment w of the
+// row's nw, band cells 32Cw .. 32C(w+1) - 1.  edges holds each segment's
+// first and last cell of the last two steps ([2][nw][2] words, step parity
+// major), red each warp's best boundary cell ([nw][4]), both in shared
+// memory.
+struct FttTbSeg {
+    int W;
+    int w, nw;
+    volatile unsigned* edges;
+    int* red;
+};
+
+// An edge word: the cell's value v of step r as (v << 11) | (r % 1024) << 1,
+// or (X << 1) | 1, "INF at every step up to X".  When a warp reads a slot
+// for step r, its writer has stored there no step after r (it would need
+// the reader's step r + 1 first) and none before r - 1023 (a segment
+// starts its sweep before step W), so r % 1024 tells r from every step the
+// slot held before; a one-bit tag would not, when a segment starts late.
+// Values stay below 2^21 (INF plus at most one +1 a step).
+#define FTT_TB_EDGE_ALWAYS 0x7fffffff
+__device__ __forceinline__ bool ftt_tb_edge_ready(unsigned word, int r,
+                                                  int& v) {
+    if (word & 1) {
+        v = FTT_INF;
+        return r <= (int)(word >> 1);
+    }
+    v = (int)(word >> 11);
+    return ((word >> 1) & 1023) == (unsigned)(r & 1023);
+}
+
 template <int C>
 __device__ __forceinline__ void ftt_tb_ring_put(int8_t* ring, int x,
                                                 int8_t v) {
@@ -105,12 +135,16 @@ __device__ __forceinline__ void ftt_tb_ring_put(int8_t* ring, int x,
 // One anti-diagonal of one row: updates the lane's cells (p1 becomes s,
 // p2 becomes s-1) and its best boundary cell, and with TRACE ors the step's
 // moves into the lane's trace word acc at bit `shift` = 2 * ((s-1) % G) * C.
+// o is the band offset of the warp's first cell; lane `top` holds the
+// warp's last cells; e_up is the cell past them at s-1, e_left and e_diag
+// the cell before the warp's first at s-1 and s-2 (INF at the band's
+// ends).
 template <int C, int MODE, bool TRACE>
 __device__ __forceinline__ void ftt_tb_step(
     int s, int o, int d1, int d2, int lane, int ql, int tl, int end_bonus,
     const int8_t* ring_q, const int8_t* ring_t, int (&p1)[C], int (&p2)[C],
     int& best, int& best_s, int& best_i, int& best_d, unsigned& acc,
-    int shift) {
+    int shift, int top, int e_up, int e_left, int e_diag) {
     constexpr int R = FTT_TB_RING(C);
     constexpr bool FAST = MODE != FTT_TB_EDGE;
     if (FAST) { d1 = MODE == FTT_TB_FAST1; d2 = 1; }
@@ -118,20 +152,20 @@ __device__ __forceinline__ void ftt_tb_step(
     // q[i-1] of cell c is qp[c]; t[j-1], j = s - i, is tp[C-1-c]
     const int8_t* qp = ring_q + ((i0 - 1) & (R - 1));
     const int8_t* tp = ring_t + ((s - i0 - C) & (R - 1));
-    // the one cell of a neighbour lane an operand can need; the band's two
-    // ends read INF
+    // the one cell of a neighbour lane an operand can need; the warp's two
+    // ends read the cells beyond them
     int nb_up = FTT_INF, nb_left = FTT_INF, nb_diag = FTT_INF;
     if (!FAST || d1) {
         nb_up = __shfl_down_sync(FTT_TB_FULL, p1[0], 1);
-        if (lane == 31) nb_up = FTT_INF;
+        if (lane == top) nb_up = e_up;
     }
     if (!FAST || !d1) {
         nb_left = __shfl_up_sync(FTT_TB_FULL, p1[C - 1], 1);
-        if (lane == 0) nb_left = FTT_INF;
+        if (lane == 0) nb_left = e_left;
     }
     if (!FAST) {
         nb_diag = __shfl_up_sync(FTT_TB_FULL, p2[C - 1], 1);
-        if (lane == 0) nb_diag = FTT_INF;
+        if (lane == 0) nb_diag = e_diag;
     }
     int cur[C];
     unsigned mine = 0;                   // this step's 2C bits
@@ -249,15 +283,18 @@ __device__ void ftt_tb_sweep(const int8_t* __restrict__ qr,
             if (!fast)
                 ftt_tb_step<C, FTT_TB_EDGE, TRACE>(
                     s, o, d1, d2, lane, ql, tl, end_bonus, ring_q, ring_t,
-                    p1, p2, best, best_s, best_i, best_d, acc, shift);
+                    p1, p2, best, best_s, best_i, best_d, acc, shift, 31,
+                    FTT_INF, FTT_INF, FTT_INF);
             else if (d1)
                 ftt_tb_step<C, FTT_TB_FAST1, TRACE>(
                     s, o, d1, d2, lane, ql, tl, end_bonus, ring_q, ring_t,
-                    p1, p2, best, best_s, best_i, best_d, acc, shift);
+                    p1, p2, best, best_s, best_i, best_d, acc, shift, 31,
+                    FTT_INF, FTT_INF, FTT_INF);
             else
                 ftt_tb_step<C, FTT_TB_FAST0, TRACE>(
                     s, o, d1, d2, lane, ql, tl, end_bonus, ring_q, ring_t,
-                    p1, p2, best, best_s, best_i, best_d, acc, shift);
+                    p1, p2, best, best_s, best_i, best_d, acc, shift, 31,
+                    FTT_INF, FTT_INF, FTT_INF);
             // the word is full, or the row ends
             if (TRACE && (u == G - 1 || s == S)) {
                 trow[(size_t)((s - 1) / G) * 32 + lane] = acc;
@@ -299,5 +336,232 @@ __device__ void ftt_tb_sweep(const int8_t* __restrict__ qr,
         ends[b] = found ? best_i : 0;
         ends[B + b] = found ? best_s - best_i : 0;
         ends[2 * B + b] = found ? best_d : 0;
+    }
+}
+
+// The block route's sweep: the calling warp sweeps segment seg.w of row
+// b's band, cells 32Cw .. min(32C(w+1), W) - 1 of a band W = seg.W wide,
+// while the other warps of the block sweep the row's other segments.  It
+// is ftt_tb_sweep with the trace (same step, rings, forms, trace words),
+// and:
+// - The last segment may hold fewer than 32 lanes of the band (W need not
+//   be a multiple of 32C; W 96 is one warp of 24 lanes of C = 4).  The
+//   lanes past the band sweep as padding: their cells are masked in the
+//   general form (qlen -1 for them), their values reach no band lane (the
+//   band's last lane takes e_up, not its neighbour's shuffle), and they
+//   store no trace word and score no cell.
+// - The neighbouring segments' edge cells come through seg.edges: after
+//   each step lane 0 publishes its first cell and its band's last lane its
+//   last, and
+//   before the next the warp waits until both neighbours have published
+//   theirs (ftt_tb_edge_ready).  No barrier spans the row: a warp waits on
+//   its two neighbours' previous step alone.
+// - A segment whose cells all lie outside [0, qlen] x [0, tlen] at a step
+//   skips the arithmetic (its cells are INF, its moves 0).  Before its
+//   first cell can be reached (j < 0 in every cell, s < 32Cw) it does not
+//   step at all: its edge words say INF up to that step, and its sweep
+//   starts one step before it, so that it reads its left neighbour's cell
+//   of the step before its first.  Once every cell lies past qlen or past
+//   tlen, which lasts to the row's end, it says INF for every later step,
+//   stores its last trace word and stops; the rest of its trace is never
+//   written (no walk reaches a cell outside the DP).
+// With EXCH false the row is this one warp (nw = 1): no edge words, no
+// waits, no skipped or stopped steps; what is left is the warp sweep with
+// padding lanes.
+// trow: the row's trace from this warp's first word, [2L / G][W/C] words.
+// Lane 0 writes the warp's best boundary cell (score, s, i, d) to
+// seg.red[4w .. 4w + 3]; the caller picks the row's.  It is a function of
+// its own, not a flag of ftt_tb_sweep: folded into one (the segment code
+// removed at compile time), the warp route compiled differently and its
+// K2 ran 8% slower at L 16384 on the H100.
+template <int C, bool EXCH>
+__device__ void ftt_tb_seg_sweep(const int8_t* __restrict__ qr,
+                                 const int8_t* __restrict__ tr, int ql,
+                                 int tl, int L, int end_bonus,
+                                 unsigned* __restrict__ trow,
+                                 unsigned char* wsmem, const FttTbSeg seg) {
+    constexpr int WS = 32 * C;           // the warp's cells
+    constexpr int K = FTT_TB_CHUNK;
+    constexpr int R = FTT_TB_RING(C);
+    constexpr int NQ = K / 64 + 1;       // prefetch registers: a chunk
+    constexpr int NT = K / 32;           // needs <= K/2 + 1 new q, <= K new t
+    constexpr int G = FTT_TB_GROUP(C);
+    const int W = seg.W;
+    const int bw = seg.w * WS;           // the warp's first cell
+    const int nl = min(32, (W - bw) / C);    // lanes of the band
+    const int wb = nl * C;               // cells of the band
+    const int pitch = W / C;             // trace words a group
+    // bytes of q (t) that steps up to s can read in the segment
+    auto need_q = [&](int s) { return ftt_tb_off(s, W) + bw + WS - 1; };
+    auto need_t = [&](int s) { return s - ftt_tb_off(s, W) - bw; };
+    int8_t* ring_q = (int8_t*)wsmem;
+    int8_t* ring_t = ring_q + FTT_TB_RING_ALLOC(C);
+    const int lane = threadIdx.x & 31;
+    const int S = min(max(ql + tl, 0), 2 * L);
+    // the first step that can reach a cell of the segment, less one
+    const int s_first = max(1, bw - 1);
+    volatile unsigned* ed = seg.edges;
+    // slot (p, e) of this warp: edge e (0 first, 1 last) of step parity p
+    auto mine = [&](int p, int e) { return ((p * seg.nw + seg.w) << 1) + e; };
+    if (EXCH) {
+        // before the sweep: INF up to the step before s_first, or for good
+        // when every cell lies past qlen
+        if (lane < 4)
+            ed[mine(lane >> 1, lane & 1)] =
+                ((unsigned)(bw > ql ? FTT_TB_EDGE_ALWAYS : s_first - 1)
+                 << 1) | 1u;
+        __syncthreads();                 // the one barrier, before the sweep
+        if (bw > ql) {
+            if (lane == 0) seg.red[4 * seg.w] = FTT_NEG;
+            return;
+        }
+    }
+
+    // the bytes of the first chunk, loaded directly
+    int fq = need_q(s_first + K - 1);
+    int ft = need_t(s_first + K - 1);
+    for (int x = max(fq - R, 0) + lane; x < fq; x += 32)
+        ftt_tb_ring_put<C>(ring_q, x, x < L ? qr[x] : (int8_t)4);
+    for (int x = max(ft - R, 0) + lane; x < ft; x += 32)
+        ftt_tb_ring_put<C>(ring_t, x, x < L ? tr[x] : (int8_t)5);
+    __syncwarp();
+
+    int p1[C], p2[C];                    // anti-diagonals s-1 and s-2
+#pragma unroll
+    for (int c = 0; c < C; ++c) { p1[c] = FTT_INF; p2[c] = FTT_INF; }
+    if (lane == 0 && bw == 0) p1[0] = 0; // s = 0: D[0, 0] at cell 0
+
+    int best = FTT_NEG, best_s = 0, best_i = 0, best_d = 0;
+    unsigned acc = 0;                    // the lane's trace word in the making
+    int e_diag = FTT_INF;                // the left neighbour's last, s-2
+    bool stop = false;
+    for (int s0 = s_first; s0 <= S && !stop; s0 += K) {
+        // what the next chunk reads beyond the rings' fronts, into registers
+        const bool more = s0 + K <= S;
+        const int nq = need_q(s0 + 2 * K - 1);
+        const int nt = need_t(s0 + 2 * K - 1);
+        int8_t pq[NQ], pt[NT];
+        if (more) {
+#pragma unroll
+            for (int u = 0; u < NQ; ++u) {
+                const int x = fq + lane + 32 * u;
+                pq[u] = (x < nq && x < L) ? qr[x] : (int8_t)4;
+            }
+#pragma unroll
+            for (int u = 0; u < NT; ++u) {
+                const int x = ft + lane + 32 * u;
+                pt[u] = (x < nt && x < L) ? tr[x] : (int8_t)5;
+            }
+        }
+        const int s_end = min(s0 + K - 1, S);
+        for (int s = s0; s <= s_end; ++s) {
+            const int o = ftt_tb_off(s, W);
+            const int d1 = o - ftt_tb_off(s - 1, W);   // 0 or 1, per warp
+            const int d2 = o - ftt_tb_off(s - 2, W);
+            const int u = (s - 1) & (G - 1);
+            const int shift = 2 * u * C;
+            const int ob = o + bw;       // band offset of the warp's cell 0
+            // the neighbours' edge cells of step s-1
+            int e_up = FTT_INF, e_left = FTT_INF;
+            const int sl = ((s - 1) & 1) * seg.nw;
+            for (unsigned polls = 0; EXCH; ++polls) {
+                // a fault of the protocol traps (a launch error), never
+                // hangs: a neighbour is a step away, not 2^26 polls
+                if (polls == (1u << 26)) __trap();
+                bool ok = true;
+                if (seg.w > 0)
+                    ok = ftt_tb_edge_ready(ed[((sl + seg.w - 1) << 1) + 1],
+                                           s - 1, e_left);
+                if (seg.w + 1 < seg.nw)
+                    ok = ftt_tb_edge_ready(ed[(sl + seg.w + 1) << 1], s - 1,
+                                           e_up) && ok;
+                if (__all_sync(FTT_TB_FULL, ok)) break;
+            }
+            // every cell past qlen or past tlen since step s-1: INF from
+            // here on (its s-1 words said INF already, and its s-2 words
+            // have been read: the neighbours are past s-1)
+            const int ob1 = ftt_tb_off(s - 1, W) + bw;
+            if (EXCH && s > s_first &&
+                (ob1 > ql || s - 1 - ob1 - wb + 1 > tl)) {
+                if (u != 0 && lane < nl) // step s-1 left its word unstored
+                    trow[(size_t)((s - 2) / G) * pitch + lane] = acc;
+                if (lane < 4)
+                    ed[mine(lane >> 1, lane & 1)] =
+                        ((unsigned)FTT_TB_EDGE_ALWAYS << 1) | 1u;
+                stop = true;
+                break;
+            }
+            // interior: the window moves, and the warp's i in
+            // [ob, ob + wb - 1] and j in [s - ob - wb + 1, s - ob] lie
+            // strictly inside the row
+            const bool fast = s >= W + 4 && ob + wb - 1 < ql && s - ob < tl &&
+                              s - ob - wb >= 0;
+            if (EXCH && (ob > min(ql, s) || s - ob - wb + 1 > tl)) {
+                // no cell of the segment in [0, qlen] x [0, tlen]
+#pragma unroll
+                for (int c = 0; c < C; ++c) { p2[c] = p1[c]; p1[c] = FTT_INF; }
+            } else if (!fast)
+                ftt_tb_step<C, FTT_TB_EDGE, true>(
+                    s, ob, d1, d2, lane, lane < nl ? ql : -1, tl, end_bonus,
+                    ring_q, ring_t, p1, p2, best, best_s, best_i, best_d, acc,
+                    shift, nl - 1, e_up, e_left, e_diag);
+            else if (d1)
+                ftt_tb_step<C, FTT_TB_FAST1, true>(
+                    s, ob, d1, d2, lane, ql, tl, end_bonus, ring_q, ring_t,
+                    p1, p2, best, best_s, best_i, best_d, acc, shift, nl - 1,
+                    e_up, e_left, e_diag);
+            else
+                ftt_tb_step<C, FTT_TB_FAST0, true>(
+                    s, ob, d1, d2, lane, ql, tl, end_bonus, ring_q, ring_t,
+                    p1, p2, best, best_s, best_i, best_d, acc, shift, nl - 1,
+                    e_up, e_left, e_diag);
+            if (EXCH) {
+                const unsigned tag = (unsigned)(s & 1023) << 1;
+                if (lane == 0)
+                    ed[mine(s & 1, 0)] = ((unsigned)p1[0] << 11) | tag;
+                if (lane == nl - 1)
+                    ed[mine(s & 1, 1)] = ((unsigned)p1[C - 1] << 11) | tag;
+                e_diag = e_left;
+            }
+            // the word is full, or the row ends
+            if (u == G - 1 || s == S) {
+                if (lane < nl)
+                    trow[(size_t)((s - 1) / G) * pitch + lane] = acc;
+                acc = 0;
+            }
+        }
+        if (more && !stop) {
+            __syncwarp();                // the chunk's reads are done
+#pragma unroll
+            for (int u = 0; u < NQ; ++u) {
+                const int x = fq + lane + 32 * u;
+                if (x < nq) ftt_tb_ring_put<C>(ring_q, x, pq[u]);
+            }
+#pragma unroll
+            for (int u = 0; u < NT; ++u) {
+                const int x = ft + lane + 32 * u;
+                if (x < nt) ftt_tb_ring_put<C>(ring_t, x, pt[u]);
+            }
+            fq = nq;
+            ft = nt;
+            __syncwarp();
+        }
+    }
+    // per-lane bests -> the warp's: highest score, earliest s, lowest i
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1) {
+        const int o_sc = __shfl_xor_sync(FTT_TB_FULL, best, off);
+        const int o_s = __shfl_xor_sync(FTT_TB_FULL, best_s, off);
+        const int o_i = __shfl_xor_sync(FTT_TB_FULL, best_i, off);
+        const int o_d = __shfl_xor_sync(FTT_TB_FULL, best_d, off);
+        if (o_sc > best || (o_sc == best &&
+                            (o_s < best_s ||
+                             (o_s == best_s && o_i < best_i)))) {
+            best = o_sc; best_s = o_s; best_i = o_i; best_d = o_d;
+        }
+    }
+    if (lane == 0) {
+        int* r = seg.red + 4 * seg.w;
+        r[0] = best; r[1] = best_s; r[2] = best_i; r[3] = best_d;
     }
 }

@@ -98,9 +98,9 @@ def lib():
         so.ftt_tb_fwd.restype = i
         so.ftt_tb_bwd.argtypes = [p, p, p, i, i, i, p, p, p]
         so.ftt_tb_bwd.restype = i
-        so.ftt_tb_fwd_block.argtypes = so.ftt_tb_fwd.argtypes
+        so.ftt_tb_fwd_block.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
         so.ftt_tb_fwd_block.restype = i
-        so.ftt_tb_bwd_block.argtypes = so.ftt_tb_bwd.argtypes
+        so.ftt_tb_bwd_block.argtypes = [p, p, p, i, i, i, i, p, p, p]
         so.ftt_tb_bwd_block.restype = i
         so.ftt_tags.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                 ctypes.c_float, i, i, p]

@@ -2,8 +2,9 @@
 
 Replaces falcon_tpu/ops/align_pallas.py extend_batch_pallas.  On a CUDA
 tensor it launches K1 or raises; on a CPU tensor it runs the plain twin
-ops.align_device.extend_batch.  LAUNCHES["extend"] counts kernel launches,
-BY_DEVICE the same launches by device ("cuda:0", ...).
+ops.align_device.extend_batch.  LAUNCHES["extend"] counts the warp
+kernel's launches and LAUNCHES["extend_block"] the block kernel's,
+BY_DEVICE both by device ("cuda:0", ...).
 
 K1 is two kernels with one result, chosen by the band alone (kernel_for):
 the warp-resident sweep at the bands it is instantiated for (WARP_WIDTHS),
@@ -17,7 +18,7 @@ import torch
 from . import _build
 from .align_device import extend_batch
 
-LAUNCHES = {"extend": 0}
+LAUNCHES = {"extend": 0, "extend_block": 0}
 BY_DEVICE = collections.Counter()
 
 WARP_WIDTHS = (32, 64, 128, 256, 512)   # bands of the warp-resident sweep
@@ -67,6 +68,6 @@ def extend_batch_cuda(q, qlen, t, tlen, W=256, end_bonus=3):
                 q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
                 B, L, W, end_bonus, ends.data_ptr(), _build.stream_of(q))
         _build.check(code, "K1 (%s, W=%d)" % (kernel, W))
-    LAUNCHES["extend"] += 1
+    LAUNCHES["extend" if kernel == "warp" else "extend_block"] += 1
     BY_DEVICE[str(q.device)] += 1
     return ends

@@ -8,7 +8,8 @@ falcon_tpu's align_tb_batch_pallas(emit_base=True) returns.  `pack_moves`
 `moves_to_alignment` are the numpy host side, re-implemented here because
 their falcon_tpu home imports JAX.  `pack_trace` and `unpack_trace` carry
 band_sweep's move planes into and out of the two-bit trace that K2 writes
-for K3.
+for K3, on either route's layout (C cells a trace word's lane field,
+ops.align_tb_cuda.trace_cells).
 """
 import numpy as np
 import torch
@@ -58,31 +59,34 @@ def moves_to_alignment(q_codes, t_codes, move_stream):
 TRACE_CHUNK = 256      # steps converted at a time (int64 temporaries)
 
 
-def _trace_fields(W, device):
-    """(C, G, shifts): cells per lane, steps per trace word, and the bit
-    offset of field u*C + c as a [G, 1, 1, C] tensor."""
-    C = W // 32
+def _trace_fields(W, C, device):
+    """(C, G, shifts): cells a word, steps a word, and the bit offset of
+    field u*C + c as a [G, 1, 1, C] tensor; C defaults to W/32, the warp
+    route's."""
+    C = C or W // 32
     G = 16 // C
     shifts = 2 * torch.arange(G * C, dtype=torch.int64, device=device)
     return C, G, shifts.view(G, 1, 1, C)
 
 
-def pack_trace(planes, L):
+def pack_trace(planes, L, C=None):
     """band_sweep's move planes [S, B, W] int8 (moves 0..2) -> K2's trace
-    [B, 2L/G, 32] int32, two bits a cell.  With C = W/32 cells per lane and
-    G = 16/C steps per word, word (s-1)//G of lane n holds the move of band
-    cell n*C + c at step s in bits 2f and 2f + 1, f = ((s-1) % G)*C + c.
-    Steps past S stay zero."""
+    [B, ceil(2L/G), W/C] int32, two bits a cell, with C cells a word
+    (default W/32, the warp route's; ops.align_tb_cuda.trace_cells gives
+    each band's) and G = 16/C steps a word: word x of group (s-1)//G holds
+    the move of band cell x*C + c at step s in bits 2f and 2f + 1,
+    f = ((s-1) % G)*C + c.  Steps past S stay zero."""
     S, B, W = planes.shape
-    C, G, shifts = _trace_fields(W, planes.device)
-    trace = torch.zeros((B, 2 * L // G, 32), dtype=torch.int32,
+    C, G, shifts = _trace_fields(W, C, planes.device)
+    NX = W // C
+    trace = torch.zeros((B, -(-2 * L // G), NX), dtype=torch.int32,
                         device=planes.device)
     step = TRACE_CHUNK // G * G
     for s0 in range(0, S, step):
         m = planes[s0:s0 + step].to(torch.int64)
         if m.shape[0] % G:               # the last word, partly filled
             m = F.pad(m, (0, 0, 0, 0, 0, G - m.shape[0] % G))
-        words = (m.view(-1, G, B, 32, C) << shifts).sum((1, 4))  # [g, B, 32]
+        words = (m.view(-1, G, B, NX, C) << shifts).sum((1, 4))  # [g, B, NX]
         words = torch.where(words >= 1 << 31, words - (1 << 32), words)
         g0 = s0 // G
         trace[:, g0:g0 + words.shape[0]] = words.transpose(0, 1).to(
@@ -90,17 +94,17 @@ def pack_trace(planes, L):
     return trace
 
 
-def unpack_trace(trace, W):
-    """Inverse of pack_trace: [B, 2L/G, 32] int32 -> move planes
-    [2L, B, W] int8."""
-    B, NG, _ = trace.shape
-    C, G, shifts = _trace_fields(W, trace.device)
+def unpack_trace(trace, W, C=None):
+    """Inverse of pack_trace: [B, NG, W/C] int32 -> move planes
+    [NG*G, B, W] int8."""
+    B, NG, NX = trace.shape
+    C, G, shifts = _trace_fields(W, C, trace.device)
     planes = torch.empty((NG * G, B, W), dtype=torch.int8,
                          device=trace.device)
     step = max(TRACE_CHUNK // G, 1)
     for g0 in range(0, NG, step):
         w = trace[:, g0:g0 + step].to(torch.int64).transpose(0, 1)
-        m = (w[:, None, :, :, None] >> shifts) & 3       # [g, G, B, 32, C]
+        m = (w[:, None, :, :, None] >> shifts) & 3       # [g, G, B, NX, C]
         planes[g0 * G:(g0 + w.shape[0]) * G] = m.reshape(-1, B, W).to(
             torch.int8)
     return planes

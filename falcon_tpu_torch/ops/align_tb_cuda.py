@@ -9,10 +9,13 @@ each kernel's launches, whichever route ran it.
 
 K2 and K3 each come as two kernels with one result, chosen by the band
 alone (kernel_for): the warp-resident sweep and the windowed warp walk at
-the bands they are instantiated for (WARP_WIDTHS), the block-per-row sweep
-and a thread-per-row walk at every other band check_batch admits.  The two
-routes lay their traces out differently (trace_shape) and each K3 reads its
-own K2's; both spend two bits a cell (trace_row_bytes).
+the bands they are instantiated for (WARP_WIDTHS), and at every other band
+check_batch admits the block route: the same sweep cut into segments of a
+few warps a row, and the windowed walk staging only the lanes it can
+reach.  Both lay the trace out as lane-packed words of C cells
+(trace_cells, trace_shape) and spend two bits a cell (trace_row_bytes).
+LAUNCHES counts each kernel's launches: tb_fwd / tb_bwd the warp route's,
+tb_fwd_block / tb_bwd_block the block route's.
 """
 import logging
 
@@ -21,7 +24,8 @@ import torch
 from . import _build
 from .align_tb import align_tb_batch
 
-LAUNCHES = {"tb_fwd": 0, "tb_bwd": 0}
+LAUNCHES = {"tb_fwd": 0, "tb_bwd": 0, "tb_fwd_block": 0,
+            "tb_bwd_block": 0}
 
 WARP_WIDTHS = (32, 64, 128, 256)    # bands of the warp route
 
@@ -32,28 +36,47 @@ _logged = set()
 def kernel_for(W):
     """Which route runs K2 + K3 at band W on a CUDA tensor: "warp"
     (csrc/tb_sweep.cuh and the windowed warp walk; W/32 cells a lane) or
-    "block" (csrc/band_dp.cuh, a block of W threads per row, and a thread
-    per row for the walk).  The band decides, never a failure of the other
-    route."""
+    "block" (the same sweep over W / (32 trace_cells(W)) warps a row, and
+    the windowed walk on its trace).  The band decides, never a failure of
+    the other route."""
     if W % 32 or not 32 <= W <= 1024:
         raise ValueError("W must be a multiple of 32 in [32, 1024]; got %d"
                          % W)
     return "warp" if W in WARP_WIDTHS else "block"
 
 
+def trace_cells(W):
+    """Band cells a lane sweeps, and a trace word's lane field holds, at
+    band W: W/32 on the warp route.  On the block route the band is one
+    warp's when 32 lanes of at most 16 cells hold it (the fewest cells a
+    lane that do: W 96 is 24 lanes of 4, the top 8 lanes padding), else
+    ceil(W/256) warps of 8 cells a lane trading edge cells; W/C a multiple
+    of 4 either way (K3 stages a trace group in 16-byte pieces).  Measured
+    on the card: one warp beats segments wherever it fits (W 512: 32 lanes
+    of 16 against 2 warps of 8), and 4 warps of 8 beat 2 of 16 at W 1024
+    (16 cells a lane in a segment take 117 registers)."""
+    if kernel_for(W) == "warp":
+        return W // 32
+    for C in (1, 2, 4, 8, 16):
+        if 32 * C >= W and W // C % 4 == 0:
+            return C
+    return 8
+
+
 def trace_row_bytes(L, W):
     """Bytes of K2's trace per batch row, on either route: 2L steps of W
-    cells, two bits a cell."""
+    cells, two bits a cell (exact when 2L is a multiple of 16/trace_cells,
+    as at every ladder length; otherwise the last word's steps past 2L
+    add under W*4 bytes)."""
     return 2 * L * W // 4
 
 
 def trace_shape(B, L, W):
-    """Shape of K2's int32 trace on W's route: the warp route's
-    [B, 2L * W/512, 32] (a lane's word packs 16/(W/32) steps), the block
-    route's [B, 2L, W/16] (two bit planes of W bits a step)."""
-    if kernel_for(W) == "warp":
-        return (B, 2 * L * W // 512, 32)
-    return (B, 2 * L, W // 16)
+    """Shape of K2's int32 trace at band W: [B, ceil(2L/G), W/C] with
+    C = trace_cells(W) and G = 16/C steps a word (ops.align_tb.pack_trace's
+    layout): [B, 2L * W/512, 32] on the warp route."""
+    C = trace_cells(W)
+    return (B, -(-2 * L * C // 16), W // C)
 
 
 def align_tb_batch_cuda(q, qlen, t, tlen, W=256, end_bonus=3):
@@ -87,9 +110,10 @@ def _route(L, W):
 
 def tb_forward_cuda(q, qlen, t, tlen, W, end_bonus):
     """K2 alone, CUDA tensors only: returns (ends [3, B] int32, trace
-    trace_shape(B, L, W) int32).  The trace layout is internal to K2/K3;
-    the warp route's is ops.align_tb.pack_trace's.  A row's steps past
-    qlen + tlen are left unwritten."""
+    trace_shape(B, L, W) int32, ops.align_tb.pack_trace's layout with
+    C = trace_cells(W)).  A row's steps past qlen + tlen are left
+    unwritten, and on the block route so are a segment's words once none
+    of its cells lies in [0, qlen] x [0, tlen] for the rest of the row."""
     _build.check_batch(q, qlen, t, tlen, W)
     if q.device.type != "cuda":
         raise ValueError("tb_forward_cuda takes CUDA tensors; got %s"
@@ -101,14 +125,18 @@ def tb_forward_cuda(q, qlen, t, tlen, W, end_bonus):
                         device=q.device)
     if B:
         lib = _build.lib()
-        fn = lib.ftt_tb_fwd if route == "warp" else lib.ftt_tb_fwd_block
+        ptrs = (q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
+                tlen.data_ptr(), B, L, W)
         with torch.cuda.device(q.device):
-            _build.check(fn(
-                q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
-                tlen.data_ptr(), B, L, W, end_bonus, ends.data_ptr(),
-                trace.data_ptr(), _build.stream_of(q)),
-                "K2 (%s, W=%d)" % (route, W))
-        LAUNCHES["tb_fwd"] += 1
+            if route == "warp":
+                code = lib.ftt_tb_fwd(*ptrs, end_bonus, ends.data_ptr(),
+                                      trace.data_ptr(), _build.stream_of(q))
+            else:
+                code = lib.ftt_tb_fwd_block(
+                    *ptrs, trace_cells(W), end_bonus, ends.data_ptr(),
+                    trace.data_ptr(), _build.stream_of(q))
+            _build.check(code, "K2 (%s, W=%d)" % (route, W))
+        LAUNCHES["tb_fwd" if route == "warp" else "tb_fwd_block"] += 1
     return ends, trace
 
 
@@ -137,11 +165,13 @@ def tb_backward_cuda(trace, ends, q, W):
     bases = torch.empty((S, B), dtype=torch.int8, device=trace.device)
     if B:
         lib = _build.lib()
-        fn = lib.ftt_tb_bwd if route == "warp" else lib.ftt_tb_bwd_block
+        ptrs = (trace.data_ptr(), q.data_ptr(), ends.data_ptr(), B, L, W)
+        outs = (moves.data_ptr(), bases.data_ptr(), _build.stream_of(trace))
         with torch.cuda.device(trace.device):
-            _build.check(fn(
-                trace.data_ptr(), q.data_ptr(), ends.data_ptr(), B, L, W,
-                moves.data_ptr(), bases.data_ptr(),
-                _build.stream_of(trace)), "K3 (%s, W=%d)" % (route, W))
-        LAUNCHES["tb_bwd"] += 1
+            if route == "warp":
+                code = lib.ftt_tb_bwd(*ptrs, *outs)
+            else:
+                code = lib.ftt_tb_bwd_block(*ptrs, trace_cells(W), *outs)
+            _build.check(code, "K3 (%s, W=%d)" % (route, W))
+        LAUNCHES["tb_bwd" if route == "warp" else "tb_bwd_block"] += 1
     return moves, bases

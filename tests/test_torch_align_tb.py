@@ -12,11 +12,12 @@ from falcon_tpu.ops import align_tb as jtb
 from falcon_tpu.ops.align_tb_pallas import align_tb_batch_pallas
 from falcon_tpu_torch.cns import device as tdev
 from falcon_tpu_torch.ops import align_tb as ttb
-from falcon_tpu_torch.ops.align_device import DeviceExtender, band_sweep
+from falcon_tpu_torch.ops.align_device import (DeviceExtender, band_off,
+                                               band_sweep)
 from falcon_tpu_torch.ops import align_tb_cuda
 from falcon_tpu_torch.ops.align_tb_cuda import (align_tb_batch_cuda,
-                                                kernel_for, trace_row_bytes,
-                                                trace_shape)
+                                                kernel_for, trace_cells,
+                                                trace_row_bytes, trace_shape)
 
 from tests.test_torch_align_device import _edge_rows, _pairs
 
@@ -121,6 +122,136 @@ def test_trace_roundtrip(W, L, monkeypatch):
     assert torch.equal(mv, ref_mv) and torch.equal(bases, ref_bases)
 
 
+@pytest.mark.parametrize("W,L", [(96, 251), (512, 320), (1024, 520)])
+def test_block_trace_roundtrip(W, L, monkeypatch):
+    """The block route's layout: band_sweep's planes -> words of C =
+    trace_cells(W) cells over ceil(2L/G) groups (2L need not be a multiple
+    of G = 16/C: at W 96, C 4, L 251) -> planes again, on full-length,
+    short and edge rows, in chunks of about 50 steps.  Word x of group
+    (s-1)//G holds the move of cell x*C + c at step s in field
+    ((s-1) % G)*C + c."""
+    monkeypatch.setattr(ttb, "TRACE_CHUNK", 50)
+    q, qlen, t, tlen = _pairs(8, L, err=0.15, seed=13)
+    _edge_rows(q, qlen, t, tlen, seed=14)
+    qlen[5], tlen[5] = min(qlen[5], 40), min(tlen[5], 37)   # a short row
+    q[5, qlen[5]:] = 4
+    t[5, tlen[5]:] = 5
+    args = [torch.from_numpy(a) for a in (q, qlen, t, tlen)]
+    ends, planes = band_sweep(*args, W, 3, keep_moves=True)
+    planes = planes.clamp(0, 2)
+    S = planes.shape[0]
+    C = trace_cells(W)
+    G = 16 // C
+    assert kernel_for(W) == "block" and W % (4 * C) == 0
+    trace = ttb.pack_trace(planes, L, C)
+    assert tuple(trace.shape) == trace_shape(8, L, W) == \
+        (8, -(-2 * L // G), W // C)
+    back = ttb.unpack_trace(trace, W, C)
+    assert torch.equal(back[:S], planes)
+    assert int(back[S:].abs().sum()) == 0
+    rng = np.random.RandomState(15)
+    for _ in range(50):
+        s, b, l = rng.randint(S), rng.randint(8), rng.randint(W)
+        word = int(trace[b, s // G, l // C]) & 0xffffffff
+        assert (word >> (2 * ((s % G) * C + l % C))) & 3 == \
+            int(planes[s, b, l])
+    mv, bases = ttb.walk_back(args[0], ends, back[:S], W)
+    ref_mv, ref_bases = ttb.walk_back(args[0], ends, planes, W)
+    assert torch.equal(mv, ref_mv) and torch.equal(bases, ref_bases)
+
+
+def _noisy_pairs(B, L, seed):
+    """Read-vs-read pairs as chip_smoke.make_pairs makes them (t random,
+    q = t at 8-15% error, equal substitutions, insertions and deletions,
+    lengths in [L/2, L]), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    q = np.full((B, L), 4, np.int8)
+    t = np.full((B, L), 5, np.int8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(rng.integers(L // 2, L + 1))
+        tt = rng.integers(0, 4, n, dtype=np.int8)
+        e = rng.uniform(0.08, 0.15) / 3
+        r = rng.random(n)
+        qq = tt.copy()
+        sub = r < e
+        qq[sub] = (qq[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        ins = np.nonzero((r >= e) & (r < 2 * e))[0]
+        qq = np.insert(qq, ins, rng.integers(0, 4, len(ins), dtype=np.int8))
+        qq = qq[rng.random(len(qq)) >= e][:L]
+        q[b, :len(qq)] = qq
+        t[b, :n] = tt
+        ql[b], tl[b] = len(qq), n
+    return q, ql, t, tl
+
+
+WALK_WINDOW = 32    # K3: anti-diagonals a window (csrc FTT_TB_WIN)
+WALK_REACH = 64     # K3, block route: lanes staged each side (FTT_TB_REACH)
+
+
+def walk_stage(n, l_ref, L, W):
+    """A model of what K3's block route (csrc/align_tb.cu
+    ftt_tb_bwd_block_kernel, `stage`) copies into shared memory for window
+    n (anti-diagonals 2L - 32n - 31 .. 2L - 32n) when the walk stands on
+    band lane l_ref: (trace groups, words of each group), as ranges; the
+    kernel skips the ones outside the row's trace."""
+    C = trace_cells(W)
+    G = 16 // C
+    g0 = (2 * L - WALK_WINDOW * (n + 1)) // G
+    x0 = max((l_ref - WALK_REACH) // C, 0) & ~3
+    span = 4 * (2 * WALK_REACH // (4 * C) + 1)
+    return range(g0, g0 + WALK_WINDOW // G + 1), range(x0, x0 + span)
+
+
+@pytest.mark.parametrize("W,L", [(96, 512), (512, 1024), (1024, 1024)])
+def test_block_walk_reads_only_what_it_stages(W, L):
+    """The invariant K3's block route rests on: walking window n, every
+    in-band cell the walk reads lies in what walk_stage copied for window n
+    (the groups of its steps, and the words of the lanes within
+    WALK_REACH of the walk's lane when the copy was issued: at the start,
+    for the first window; at the start of window n-1, for the others).
+    On band_sweep + walk_back paths at 8-15% error, the edge rows (one
+    drifts off the band) among them."""
+    B = 12
+    q, ql, t, tl = _noisy_pairs(B, L, seed=W)
+    _edge_rows(q, ql, t, tl, seed=W + 1)
+    args = [torch.from_numpy(a) for a in (q, ql, t, tl)]
+    ends, planes = band_sweep(*args, W, 3, keep_moves=True)
+    moves, _ = ttb.walk_back(args[0], ends, planes.clamp(0, 2), W)
+    moves = moves.numpy()
+    S = 2 * L
+    win = WALK_WINDOW
+    C = trace_cells(W)
+    G = 16 // C
+    reads = drift = 0
+    for b in range(B):
+        i, j = int(ends[0, b]), int(ends[1, b])
+        if i + j == 0:
+            continue
+        n = (S - i - j) // win
+        staged = walk_stage(n, i - band_off(i + j, W), L, W)
+        while i + j > 0:
+            # the next window's copy is issued before this one is walked
+            nxt = walk_stage(n + 1, i - band_off(i + j, W), L, W)
+            l_start = i - band_off(i + j, W)
+            while i + j > S - win * (n + 1):
+                s = i + j
+                m = int(moves[S - s, b])
+                lane = i - band_off(s, W)
+                if 0 <= lane < W:
+                    assert (s - 1) // G in staged[0], (b, s)
+                    assert lane // C in staged[1], (b, s, lane, staged[1])
+                    reads += 1
+                    drift = max(drift, abs(lane - l_start))
+                i -= m in (0, 2)
+                j -= m in (0, 1)
+            n += 1
+            staged = nxt
+    assert reads > B * L // 2
+    assert drift > 4          # the lanes do move within a window
+
+
 @pytest.mark.parametrize("kind", ["cpu", "cuda"])
 def test_batch_for_fits_the_trace_budget(kind, monkeypatch):
     """Rows x trace bytes per row stays inside moves_budget for every
@@ -193,6 +324,17 @@ def test_kernel_for_routes_every_band():
         shape = trace_shape(5, 1024, W)
         assert shape[0] == 5
         assert 4 * int(np.prod(shape)) == 5 * trace_row_bytes(1024, W)
+        C = trace_cells(W)
+        assert shape == (5, 2048 * C // 16, W // C)
+        # whole 16-byte pieces a group; the warp route's 32 lanes of W/32
+        assert W % (4 * C) == 0 and (routes[W] == "block" or C == W // 32)
+        # one warp whenever 32 lanes of at most 16 cells hold the band
+        assert (32 * C >= W) == (W <= 512 and W // 32 not in (9, 11, 13, 15))
     assert trace_shape(5, 1024, 256) == (5, 1024, 32)
-    assert trace_shape(5, 1024, 96) == (5, 2048, 6)
+    assert trace_shape(5, 1024, 96) == (5, 512, 24)     # 24 lanes of C 4
+    assert trace_shape(5, 1024, 512) == (5, 2048, 32)   # one warp of C 16
+    assert trace_shape(5, 1024, 288) == (5, 1024, 36)   # 2 warps of C 8
+    assert trace_shape(5, 1024, 992) == (5, 1024, 124)  # 4 warps of C 8
+    assert trace_shape(5, 1024, 1024) == (5, 1024, 128)  # 4 warps of C 8
+    assert trace_shape(5, 251, 96) == (5, 126, 24)      # ceil(502 / 4)
     assert align_tb_cuda.WARP_WIDTHS == (32, 64, 128, 256)

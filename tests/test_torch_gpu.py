@@ -43,10 +43,11 @@ def test_k1_matches_twin(rng, W, L, B):
     """Every band of the warp kernel, two of the block kernel, an L that is
     no multiple of 16, and more rows than one wave of warps."""
     args = make_pairs(rng, B, L, W)
-    n = align_cuda.LAUNCHES["extend"]
+    key = "extend" if align_cuda.kernel_for(W) == "warp" else "extend_block"
+    n = align_cuda.LAUNCHES[key]
     got = align_cuda.extend_batch_cuda(*args, W=W)
     torch.cuda.synchronize()
-    assert align_cuda.LAUNCHES["extend"] == n + 1
+    assert align_cuda.LAUNCHES[key] == n + 1
     assert torch.equal(got, extend_batch(*args, W=W))
 
 
@@ -70,32 +71,28 @@ def test_device_extender_over_two_shards_matches_one_device(rng, B, L):
 
 TB_SHAPES = [(32, 256, 40), (64, 512, 24), (128, 1024, 70),
              (256, 2048, 16), (256, 1024, 130)]
-# bands of the block route; L 250 and 251 are no multiple of 16, and 251
-# leaves a last packed byte half filled
+# bands of the block route (align_tb_cuda.trace_cells): one warp with
+# padding lanes (96: 24 lanes of 4 cells, 160 and 192: 20 and 24 of 8, 320:
+# 20 of 16), one full warp of 16 (512), and segments trading edge cells
+# (1024: 4 x 8; 992: 4 x 8, the last 28 lanes; 544 and 288: 3 and 2 x 8,
+# the last 4 lanes); L 250 and 251 are no multiple of 16, and 251 leaves a
+# last packed byte half filled; W 1024 at L 4096 crosses many ring chunks;
+# a batch of one row
 TB_BLOCK_SHAPES = [(96, 512, 24), (192, 1024, 20), (512, 1024, 12),
-                   (1024, 2048, 8), (160, 250, 30), (160, 251, 30)]
+                   (1024, 2048, 8), (160, 250, 30), (160, 251, 30),
+                   (992, 1024, 8), (544, 512, 12), (288, 512, 12),
+                   (320, 512, 12), (1024, 4096, 6), (512, 1024, 1)]
 
 
-def block_trace(planes, L):
-    """band_sweep's move planes [S, B, W] -> the block route's trace
-    [B, 2L, W/16] int32: per step and warp of 32 cells, a word of the moves'
-    low bits and a word of their high bits."""
-    S, B, W = planes.shape
-    m = planes.to(torch.int64).view(S, B, W // 32, 1, 32)
-    bits = torch.cat([m & 1, (m >> 1) & 1], 3) << torch.arange(
-        32, device=planes.device)
-    words = bits.sum(4)                                  # [S, B, W/32, 2]
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    trace = torch.zeros((B, 2 * L, W // 16), dtype=torch.int32,
-                        device=planes.device)
-    trace[:, :S] = words.reshape(S, B, W // 16).transpose(0, 1).to(
-        torch.int32)
-    return trace
+def tb_key(kernel, W):
+    """The LAUNCHES key of K2 ("tb_fwd") or K3 ("tb_bwd") on W's route."""
+    return kernel if align_tb_cuda.kernel_for(W) == "warp" \
+        else kernel + "_block"
 
 
 @pytest.mark.parametrize("W,L,B", TB_SHAPES + TB_BLOCK_SHAPES)
 def test_k2_k3_match_twin(rng, W, L, B):
-    args = make_pairs(rng, B, L, W)
+    args = make_pairs(rng, B, L, W, edge=B > 5)
     got = align_tb_cuda.align_tb_batch_cuda(*args, W=W)
     torch.cuda.synchronize()
     for name, g, r in zip("i j d moves bases".split(), got,
@@ -103,34 +100,33 @@ def test_k2_k3_match_twin(rng, W, L, B):
         assert torch.equal(g, r), name
 
 
-@pytest.mark.parametrize("W,L,B", TB_SHAPES)
+@pytest.mark.parametrize("W,L,B", TB_SHAPES + TB_BLOCK_SHAPES)
 def test_k2_matches_band_sweep(rng, W, L, B):
     """K2's ends, and its two-bit trace on every cell a row swept."""
-    args = make_pairs(rng, B, L, W)
-    n = align_tb_cuda.LAUNCHES["tb_fwd"]
+    args = make_pairs(rng, B, L, W, edge=B > 5)
+    n = align_tb_cuda.LAUNCHES[tb_key("tb_fwd", W)]
     ends, trace = align_tb_cuda.tb_forward_cuda(*args, W, 3)
     torch.cuda.synchronize()
-    assert align_tb_cuda.LAUNCHES["tb_fwd"] == n + 1
+    assert align_tb_cuda.LAUNCHES[tb_key("tb_fwd", W)] == n + 1
     p_ends, planes = band_sweep(*args, W, 3, keep_moves=True)
     assert torch.equal(ends, p_ends)
-    same, cells = swept_cells_equal(unpack_trace(trace, W), planes, args[1],
-                                    args[3], W)
+    got = unpack_trace(trace, W, align_tb_cuda.trace_cells(W))
+    same, cells = swept_cells_equal(got, planes, args[1], args[3], W)
     assert same and cells > 0
 
 
 @pytest.mark.parametrize("W,L,B", TB_SHAPES + TB_BLOCK_SHAPES)
 def test_k3_matches_walk_back(rng, W, L, B):
     """K3 on the plain sweep's trace and ends, in its route's layout."""
-    args = make_pairs(rng, B, L, W)
+    args = make_pairs(rng, B, L, W, edge=B > 5)
     p_ends, planes = band_sweep(*args, W, 3, keep_moves=True)
     planes = planes.clamp(0, 2)        # rows' unswept steps: never read
-    pack = pack_trace if align_tb_cuda.kernel_for(W) == "warp" \
-        else block_trace
-    n = align_tb_cuda.LAUNCHES["tb_bwd"]
+    n = align_tb_cuda.LAUNCHES[tb_key("tb_bwd", W)]
     moves, bases = align_tb_cuda.tb_backward_cuda(
-        pack(planes, L), p_ends, args[0], W)
+        pack_trace(planes, L, align_tb_cuda.trace_cells(W)), p_ends,
+        args[0], W)
     torch.cuda.synchronize()
-    assert align_tb_cuda.LAUNCHES["tb_bwd"] == n + 1
+    assert align_tb_cuda.LAUNCHES[tb_key("tb_bwd", W)] == n + 1
     p_moves, p_bases = walk_back(args[0], p_ends, planes, W)
     assert torch.equal(moves, pack_moves(p_moves))
     assert torch.equal(bases, p_bases)
@@ -332,10 +328,10 @@ def test_sharded_tb_align_matches_one_launch(rng, W, B, L):
     a block-route band included, equal to one launch on all rows."""
     args = make_pairs(rng, B, L, W)
     mesh = pm.make_mesh(devices=TWO)
-    n = align_tb_cuda.LAUNCHES["tb_fwd"]
+    n = align_tb_cuda.LAUNCHES[tb_key("tb_fwd", W)]
     got = pm.sharded_tb_align(mesh, *args, W=W)
     torch.cuda.synchronize()
-    assert align_tb_cuda.LAUNCHES["tb_fwd"] == n + 2
+    assert align_tb_cuda.LAUNCHES[tb_key("tb_fwd", W)] == n + 2
     for g, r in zip(got, align_tb_cuda.align_tb_batch_cuda(*args, W=W)):
         assert torch.equal(g, r)
 

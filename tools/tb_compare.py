@@ -1,6 +1,6 @@
 """Time the kernels of two trees of falcon_tpu_torch on one card, in one call.
 
-    python tools/tb_compare.py --parent DIR [--change DIR]
+    python tools/tb_compare.py --parent DIR [--change DIR] [--band W]
         [--shapes BxL,...] [--k1-shapes BxL,...] [--k4-shapes TxG,...]
         [--k5-shapes TxG,...] [--k6-shapes TxG,...]
 
@@ -11,10 +11,13 @@ trees are timed in the order parent, change, change, parent, each in a
 process of its own (both packages are called falcon_tpu_torch, and each
 builds its own kernels), on the same inputs made from --seed:
 
-  --shapes     K2 and K3 at (B, L), W = 256: chip_smoke.make_pairs without
-               its edge rows, read-vs-read pairs at 8-15% error, lengths in
+  --band       W of K1, K2 and K3 (default 256, the warp routes; a band
+               of the block routes times those, with each tree's own
+               layout)
+  --shapes     K2 and K3 at (B, L): chip_smoke.make_pairs without its edge
+               rows, read-vs-read pairs at 8-15% error, lengths in
                [L/2, L]; every launch's trace exceeds L2
-  --k1-shapes  K1 at (B, L), W = 256, on the same kind of pairs
+  --k1-shapes  K1 at (B, L), on the same kind of pairs
   --k4-shapes  K4 at (T, G), D = 14, on one DP batch's 2G rows at
                L = min(T/2, 16384) (chip_smoke.dp_batch through the tree's
                own K2 + K3), the timed launches adding to one buffer
@@ -27,8 +30,8 @@ builds its own kernels), on the same inputs made from --seed:
 An empty list skips its kernels.  Kernel times are CUDA events, the mean of
 --reps launches after a warm-up.  One JSON line per (tree, kernel, shape),
 then a summary line per kernel and shape; `same` says whether the two
-trees' outputs agreed (a checksum of the end cells, of K4's counts, of
-K5's six outputs or of K6's two).
+trees' outputs agreed (a checksum of K2's end cells and K3's two streams,
+of K1's end cells, of K4's counts, of K5's six outputs or of K6's two).
 """
 import argparse
 import json
@@ -36,7 +39,6 @@ import os
 import subprocess
 import sys
 
-W = 256
 D = 14
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,16 +55,19 @@ def worker(args):
     def out(**kv):
         print(json.dumps(dict(tree=tree, **kv)), flush=True)
     rng = np.random.default_rng(args.seed)
+    W = args.band
     for B, L in args.shapes:
         q, ql, t, tl = make_pairs(rng, B, L, W, edge=False)
         (ends, trace), fwd = cuda_ms(
             lambda: align_tb_cuda.tb_forward_cuda(q, ql, t, tl, W, 3),
             reps=args.reps)
-        _, bwd = cuda_ms(
+        (mv, bs), bwd = cuda_ms(
             lambda: align_tb_cuda.tb_backward_cuda(trace, ends, q, W),
             reps=args.reps)
         out(kernel="K2+K3", shape=[B, L], W=W, k2_ms=fwd, k3_ms=bwd,
-            checksum=int(ends.sum()))
+            checksum=[int(ends.long().sum()), int(mv.long().sum()),
+                      int(bs.long().sum())])
+        del mv, bs
         del trace
         torch.cuda.empty_cache()
     for B, L in args.k1_shapes:
@@ -125,6 +130,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent")
     ap.add_argument("--change", default=HERE)
+    ap.add_argument("--band", type=int, default=256)
     ap.add_argument("--shapes", type=shape_list,
                     default="1024x1024,256x16384")
     ap.add_argument("--k1-shapes", type=shape_list,
@@ -174,7 +180,7 @@ def main(argv=None):
                                                                  shape)]
         print(json.dumps(dict(
             card=card, kernel=kernel, shape=shape,
-            same=len({r["checksum"] for r in rows}) == 1,
+            same=len({json.dumps(r["checksum"]) for r in rows}) == 1,
             **{"%s_%s" % (side, key): [r[key] for r in rows
                                        if r["side"] == side]
                for side in ("parent", "change")

@@ -9,16 +9,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   env       card name and power limit (nvidia-smi), torch / CUDA / nvcc
             versions, whether the host C++ library builds
   build     nvcc builds the port's kernels from csrc/ (build time, ptxas
-            register and shared-memory counts)
+            register and shared-memory counts, the kernels that spill
+            registers); a K1 kernel that spills fails the run
   latency   a pointer chase (csrc/latency.cu) measures the latency of one
             dependent read from shared memory and from device memory, in
             SM clocks: what the chain floors below rest on
   k1        K1 (banded extension) against its plain twin on the card,
             bit-equal on (i, j, d) at W = 256 and W = 64, L = 1024, 4096,
-            16384, at W = 32, 128 and 512 (the warp kernel's other bands)
-            and at W = 96 (the block kernel); then bit-equal and timed at
-            the (B, L) the pipeline's extender launches at L = 1024 and
-            8192, at W = 256 and at W = 96 and 1024 (the block kernel)
+            16384, at W = 32, 96, 128, 160, 480 and 512 (the warp form,
+            C = W/32 = 1-16 cells a lane) and at W = 544, 768, 992 and
+            1024 (the wide form, 17-32), each with the edge rows; then
+            bit-equal and timed at the (B, L) the pipeline's extender
+            launches at L = 1024 and 8192, at W = 256 and at W = 96 and
+            1024 (K1_TIMED_BANDS: 3 and 32 cells a lane)
   sharded_k1  the extender's multi-device path: sharded_specs_extend over
             make_mesh() (over cuda:0 twice on a one-card machine) at
             (B, L) = (16384, 1024) and (4096, 8192), bit-equal to one K1
@@ -294,13 +297,26 @@ def phase_build():
     t0 = time.time()
     secs = _build.build()
     _build.lib()
+    # ptxas names a function on one line and writes its stack and spills
+    # on the next but one, without the "ptxas info" prefix
+    ptxas, spills, func = [], {}, None
     with open(_build.LOG_PATH) as f:
-        ptxas = [ln.strip() for ln in f if "ptxas info" in ln]
-    spills = [ln for ln in ptxas if "spill" in ln and
-              "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        for ln in f:
+            ln = ln.strip()
+            if "ptxas info" in ln:
+                ptxas.append(ln)
+                if "Function properties for" in ln:
+                    func = ln.split("Function properties for")[1].strip()
+            elif "bytes spill" in ln:
+                ptxas.append(ln)
+                if "0 bytes spill stores, 0 bytes spill loads" not in ln:
+                    spills[func] = ln
     log(phase="build", compile_s=round(secs, 3),
         total_s=round(time.time() - t0, 3), ptxas=ptxas,
-        kernels_with_spills=len(spills))
+        kernels_with_spills=len(spills), spills=spills)
+    k1 = {f: ln for f, ln in spills.items() if "ftt_extend" in f}
+    if k1:
+        raise SystemExit("build: K1 spills registers: %s" % k1)
 
 
 def phase_latency(card):
@@ -355,15 +371,15 @@ def k1_check(got, ref, W, L, B, **kv):
     return e
 
 
-K1_BLOCK_BANDS = (96, 1024)     # bands of K1's block kernel timed
+K1_TIMED_BANDS = (96, 1024)     # K1 timed beside W_MAIN: C 3 and 32
 
 
 def phase_k1(rng, card, clock):
-    """Parity at small batches of every band of the warp kernel and one
-    of the block kernel, then parity, times and bounds at the (B, L) the
-    pipeline's extender launches (its _batch_for) at L 1024 and 8192: at
-    W_MAIN (the warp kernel) and at K1_BLOCK_BANDS (the block kernel).
-    Returns (max abs err, {(W, L): timing dict})."""
+    """Parity at small batches of bands of both forms of K1 (among them
+    C = 3, 5, 15, 17, 24, 31 and 32 cells a lane), then parity, times and
+    bounds at the (B, L) the pipeline's extender launches (its _batch_for)
+    at L 1024 and 8192: at W_MAIN and at K1_TIMED_BANDS.  Returns (max abs
+    err, {(W, L): timing dict})."""
     from falcon_tpu_torch.ops.align_cuda import extend_batch_cuda, kernel_for
     from falcon_tpu_torch.ops.align_device import band_cells, extend_batch
     from falcon_tpu_torch.overlap.engine import make_device_aligner
@@ -371,7 +387,9 @@ def phase_k1(rng, card, clock):
     for W, L, B in ((256, 1024, 96), (64, 1024, 64), (256, 4096, 64),
                     (64, 4096, 32), (256, 16384, 32), (32, 1024, 32),
                     (128, 1024, 32), (512, 1024, 32), (512, 4096, 32),
-                    (96, 1024, 32)):
+                    (96, 1024, 32), (160, 1024, 32), (480, 1024, 32),
+                    (544, 1024, 32), (768, 2048, 16), (992, 1024, 16),
+                    (1024, 1024, 16), (1024, 4096, 8)):
         args = make_pairs(rng, B, L, W)
         got = extend_batch_cuda(*args, W=W)
         ref = extend_batch(*args, W=W)
@@ -379,9 +397,9 @@ def phase_k1(rng, card, clock):
         err = max(err, k1_check(got, ref, W, L, B, kernel=kernel_for(W)))
     ext = make_device_aligner(W=W_MAIN, device="cuda").ext
     times = {}
-    # the main path's band, then the block kernel's (no default run
-    # launches it) at the same extender shapes
-    for W in (W_MAIN,) + K1_BLOCK_BANDS:
+    # the main path's band, then two no default run takes, at the same
+    # extender shapes
+    for W in (W_MAIN,) + K1_TIMED_BANDS:
         for L in (1024, 8192):
             B = ext._batch_for(L)
             args = make_pairs(rng, B, L, W)
@@ -732,10 +750,10 @@ def phase_sharded_k1(rng, card):
 
 
 def block_counters():
-    """The block routes' launch counters (no default run takes them), by
-    kernel: (LAUNCHES dict, key)."""
+    """The launch counters of the forms no default run takes (K1's wide
+    form, K2's and K3's block routes), by kernel: (LAUNCHES dict, key)."""
     from falcon_tpu_torch.ops import align_cuda, align_tb_cuda
-    return {"K1 block": (align_cuda.LAUNCHES, "extend_block"),
+    return {"K1 wide": (align_cuda.LAUNCHES, "extend_wide"),
             "K2 block": (align_tb_cuda.LAUNCHES, "tb_fwd_block"),
             "K3 block": (align_tb_cuda.LAUNCHES, "tb_bwd_block")}
 
@@ -787,11 +805,11 @@ def write_run(args, workdir, name):
 def phase_pipeline(args, workdir, dp, device="cuda"):
     """The port's Pipeline on the simulated genome, consensus through the
     device-DP path (dp) or the host-MSA path; returns (launches by kernel,
-    timings, artifact digests; the launches include the block routes',
-    which the default band never takes).  The DP run must launch every
-    kernel, the host-MSA run K1-K3 and none of K4-K6.  With the bare
-    device "cuda" the extender cuts K1's batches over every visible GPU; a
-    named one ("cuda:0") keeps them on that card."""
+    timings, artifact digests; the launches include those of the forms
+    the default band never takes, block_counters).  The DP run must
+    launch every kernel, the host-MSA run K1-K3 and none of K4-K6.  With
+    the bare device "cuda" the extender cuts K1's batches over every
+    visible GPU; a named one ("cuda:0") keeps them on that card."""
     from falcon_tpu_torch.pipeline.driver import Pipeline
     from falcon_tpu_torch.utils import simcheck
     name = ("pipeline_dp" if dp else "pipeline") + \
@@ -1819,10 +1837,10 @@ def run_phases(args, rng, card, clock):
             ("K3 traceback walk", "align_tb.cu",
              "falcon_tpu/ops/align_tb_pallas.py:151", launches["K3"], e3,
              t_tb["K3"]),
-            # the block routes, at a band the default run never takes
-            ("K1 banded extension, block kernel W %d" % K1_BLOCK_BANDS[0],
+            # the forms at a band the default run never takes
+            ("K1 banded extension, wide kernel W %d" % K1_TIMED_BANDS[-1],
              "extend.cu", "falcon_tpu/ops/align_pallas.py:50",
-             launches["K1 block"], e1, t1[(K1_BLOCK_BANDS[0], 1024)]),
+             launches["K1 wide"], e1, t1[(K1_TIMED_BANDS[-1], 1024)]),
             ("K2 traceback forward, block route W %d" % BLOCK_ROW_BAND,
              "align_tb.cu", "falcon_tpu/ops/align_tb_pallas.py:39",
              launches["K2 block"], e_bands, t_blk["K2"]),

@@ -1,15 +1,17 @@
 // Warp-resident banded anti-diagonal edit DP: with a two-bit trace (K2,
 // TRACE = true) and without one (K1, TRACE = false; extend.cu).
 //
-// The DP is band_dp.cuh's: anti-diagonal s = i + j, band cell l holds
-// i = o(s) + l with o(s) = max(0, s/2 - W/2), j = s - i, edit costs 1, the
-// same end-cell rule.  What differs is where a row lives: one warp sweeps
-// one row, and lane n holds the C = W/32 consecutive band cells
-// l = n*C .. n*C + C - 1 of anti-diagonals s-1 and s-2 in registers.  The
-// window offset moves by 0 or 1 per step, so a step needs one cell of a
-// neighbouring lane per operand (shuffles) and no barrier; the C cells of
-// a lane are independent and give the instruction-level parallelism that
-// hides the arithmetic latency.
+// The DP is ops/align_device.py extend_batch's: anti-diagonal s = i + j,
+// band cell l holds i = o(s) + l with o(s) = max(0, s/2 - W/2), j = s - i,
+// edit costs 1, row 0 and column 0 forced, and the end-cell rule below.
+// One warp sweeps one row, and lane n holds the C = W/32 consecutive band
+// cells l = n*C .. n*C + C - 1 of anti-diagonals s-1 and s-2 in registers.
+// The window offset moves by 0 or 1 per step, so a step needs one cell of
+// a neighbouring lane per operand (shuffles) and no barrier; the C cells
+// of a lane are independent and give the instruction-level parallelism
+// that hides the arithmetic latency.  C is any of 1 .. 32 without the
+// trace (K1: every multiple of 32 up to 1024 is one warp), and divides 16
+// with it (K2's warp route).
 //
 // The sweep is bound by instruction issue, so a step is compiled three
 // ways and the warp picks one per step (the choice depends on s, qlen and
@@ -37,6 +39,20 @@
 // were never loaded (index < 0 or >= L) are only read by cells that are
 // masked (outside [0, qlen] x [0, tlen]) or forced (row 0, column 0), so
 // their value is never used.
+// Shared memory serves a warp's byte reads by 32-bit words, one word a
+// bank a pass: lane n reads bytes nC + c, so at C = 16 a read touches 4
+// words in a bank and at C = 32 eight (2 at most at every other C from 5
+// to 31, 1 below), and the sweep without the trace ran at the rate of
+// those passes (one warp at W 1024: 112 ms at the extender's (4096, 8192)
+// on an H100, tools/tb_compare.py).  So without the trace, from C = 16 on,
+// a step reads the lane's q and t runs as C/4 + 1 aligned words each,
+// funnel-shifts them into place and compares four cells by one xor: ~8x
+// fewer passes at C = 32 for about one more integer operation a cell
+// (W 1024: 112 -> 37 ms; W 512: 28.8 -> 14.4 ms).  The mirror then covers
+// what the words reach, 4 * ceil(C/4) bytes.  Below C = 16, and in K2,
+// the byte reads stay: at most two words a bank, and the words measured
+// 5-9% slower at C 3, and 8% slower and 6% faster at the extender's two
+// shapes at C 8.
 //
 // The trace is two bits a cell (0 = diag, 1 = up, 2 = left; masked cells
 // store 0) and never leaves its lane on the way out: a lane packs the
@@ -74,8 +90,18 @@
 
 // Ring bytes per sequence, and what one warp needs of shared memory: two
 // rings with their mirrors.
-#define FTT_TB_RING(C) ((C) * 32 + FTT_TB_CHUNK + 8 <= 512 ? 512 : 1024)
-#define FTT_TB_RING_ALLOC(C) (FTT_TB_RING(C) + ((C) > 8 ? (C) : 8))
+#define FTT_TB_RING(C)                                                   \
+    ((C) * 32 + FTT_TB_CHUNK + 8 <= 512    ? 512                          \
+     : (C) * 32 + FTT_TB_CHUNK + 8 <= 1024 ? 1024                         \
+                                           : 2048)
+// Without the trace, from this many cells a lane, the step can read q and
+// t as 32-bit words (ftt_tb_step)
+#define FTT_TB_WORD_CELLS 16
+// Bytes mirrored behind a ring: as far as a lane's reads run past its end
+#define FTT_TB_MIRROR(C) ((C) >= FTT_TB_WORD_CELLS ? 4 * (((C) + 3) / 4) : (C))
+#define FTT_TB_RING_ALLOC(C)                                             \
+    (FTT_TB_RING(C) +                                                    \
+     (FTT_TB_MIRROR(C) > 8 ? (FTT_TB_MIRROR(C) + 7) / 8 * 8 : 8))
 #define FTT_TB_WARP_SMEM(C) (2 * FTT_TB_RING_ALLOC(C))
 // Steps whose moves fill one 32-bit trace word of a lane
 #define FTT_TB_GROUP(C) (16 / (C))
@@ -129,7 +155,7 @@ __device__ __forceinline__ void ftt_tb_ring_put(int8_t* ring, int x,
     constexpr int R = FTT_TB_RING(C);
     const int p = x & (R - 1);
     ring[p] = v;
-    if (p < C) ring[p + R] = v;          // the mirror
+    if (p < FTT_TB_MIRROR(C)) ring[p + R] = v;   // the mirror
 }
 
 // One anti-diagonal of one row: updates the lane's cells (p1 becomes s,
@@ -150,8 +176,30 @@ __device__ __forceinline__ void ftt_tb_step(
     if (FAST) { d1 = MODE == FTT_TB_FAST1; d2 = 1; }
     const int i0 = o + lane * C;
     // q[i-1] of cell c is qp[c]; t[j-1], j = s - i, is tp[C-1-c]
-    const int8_t* qp = ring_q + ((i0 - 1) & (R - 1));
+    const int qa = (i0 - 1) & (R - 1);
+    const int8_t* qp = ring_q + qa;
     const int8_t* tp = ring_t + ((s - i0 - C) & (R - 1));
+    // Or, without the trace and from FTT_TB_WORD_CELLS cells a lane, the
+    // lane's q and t runs as aligned 32-bit words, four cells compared by
+    // one xor: x[m] is the xor of cells 4m .. 4m+3's q and t bytes.
+    constexpr bool WORDS = !TRACE && C >= FTT_TB_WORD_CELLS;
+    constexpr int NX = WORDS ? (C + 3) / 4 : 1;
+    unsigned x[NX];
+    if constexpr (WORDS) {
+        // t bytes of cells 4NX-1 .. 0 (the first 4NX - C before the run)
+        const int ta = (s - i0 - 4 * NX) & (R - 1);
+        const unsigned* qw = (const unsigned*)(ring_q + (qa & ~3));
+        const unsigned* tw = (const unsigned*)(ring_t + (ta & ~3));
+        unsigned qv[NX + 1], tv[NX + 1];
+#pragma unroll
+        for (int k = 0; k <= NX; ++k) { qv[k] = qw[k]; tv[k] = tw[k]; }
+#pragma unroll
+        for (int m = 0; m < NX; ++m)
+            x[m] = __funnelshift_r(qv[m], qv[m + 1], 8 * (qa & 3)) ^
+                   __byte_perm(__funnelshift_r(tv[NX - 1 - m], tv[NX - m],
+                                               8 * (ta & 3)),
+                               0, 0x0123);
+    }
     // the one cell of a neighbour lane an operand can need; the warp's two
     // ends read the cells beyond them
     int nb_up = FTT_INF, nb_left = FTT_INF, nb_diag = FTT_INF;
@@ -171,8 +219,14 @@ __device__ __forceinline__ void ftt_tb_step(
     unsigned mine = 0;                   // this step's 2C bits
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-        const int qc = qp[c];
-        const int tc = tp[C - 1 - c];
+        int mis;                         // q[i-1] != t[j-1]
+        if constexpr (WORDS) {
+            mis = (x[c >> 2] >> (8 * (c & 3))) & 0xffu ? 1 : 0;
+        } else {
+            const int qc = qp[c];
+            const int tc = tp[C - 1 - c];
+            mis = qc != tc ? 1 : 0;
+        }
         // D[i, j-1] is cell l + d1 of s-1, D[i-1, j] cell l + d1 - 1,
         // D[i-1, j-1] cell l + d2 - 1 of s-2
         const int p1_next = c + 1 < C ? p1[(c + 1) % C] : nb_up;
@@ -182,7 +236,7 @@ __device__ __forceinline__ void ftt_tb_step(
         const int left = d1 ? p1[c] : p1_prev;
         const int diag = d2 ? p2[c] : p2_prev;
         const int side = min(up, left);
-        const int v_diag = diag + (qc != tc ? 1 : 0);
+        const int v_diag = diag + mis;
         // the fused add-min where the clock says it helps: without the
         // trace (with it, the moves need side and v_diag anyway)
         int cand = TRACE ? min(side + 1, v_diag)
@@ -229,7 +283,8 @@ __device__ void ftt_tb_sweep(const int8_t* __restrict__ qr,
     constexpr int K = FTT_TB_CHUNK;
     constexpr int NQ = K / 64 + 1;       // prefetch registers: a chunk
     constexpr int NT = K / 32;           // needs <= K/2 + 1 new q, <= K new t
-    constexpr int G = FTT_TB_GROUP(C);
+    static_assert(!TRACE || 16 % C == 0, "a trace word holds 16 / C steps");
+    constexpr int G = TRACE ? FTT_TB_GROUP(C) : 1;
     int8_t* ring_q = (int8_t*)wsmem;
     int8_t* ring_t = ring_q + FTT_TB_RING_ALLOC(C);
     const int lane = threadIdx.x & 31;

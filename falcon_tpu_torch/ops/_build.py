@@ -92,8 +92,6 @@ def lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         so.ftt_extend_warp.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
         so.ftt_extend_warp.restype = i
-        so.ftt_extend_block.argtypes = [p, p, p, p, i, i, i, i, p, p]
-        so.ftt_extend_block.restype = i
         so.ftt_tb_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
         so.ftt_tb_fwd.restype = i
         so.ftt_tb_bwd.argtypes = [p, p, p, i, i, i, p, p, p]

@@ -1,5 +1,5 @@
 """K2 + K3 wrapper: the hand-written CUDA alignment with traceback
-(csrc/align_tb.cu, csrc/tb_sweep.cuh, csrc/band_dp.cuh).
+(csrc/align_tb.cu, csrc/tb_sweep.cuh).
 
 Replaces falcon_tpu/ops/align_tb_pallas.py align_tb_batch_pallas
 (emit_base=True).  On a CUDA tensor it launches K2 (forward DP + two-bit

@@ -130,15 +130,36 @@ def test_extend_batch_edge_rows_w512():
     assert tuple(got[:, 4]) == (L, L, 0)
 
 
+@pytest.mark.parametrize("W,L", [(96, 256), (160, 320), (544, 1024),
+                                 (1024, 1024)])
+def test_extend_batch_edge_rows_other_bands(W, L):
+    """The edge rows at W 96 and 160 (3 and 5 cells a lane, K1's warp
+    form) and 544 and 1024 (17 and 32, its wide form), against
+    extend_batch_device."""
+    q, qlen, t, tlen = _pairs(8, L, err=0.12, seed=W)
+    _edge_rows(q, qlen, t, tlen, seed=W + 1)
+    xla = np.stack([np.asarray(a) for a in jad.extend_batch_device(
+        jnp.asarray(q.astype(np.int32)), jnp.asarray(qlen),
+        jnp.asarray(t.astype(np.int32)), jnp.asarray(tlen), W=W)])
+    got = _port(q, qlen, t, tlen, W)
+    np.testing.assert_array_equal(got, xla)
+    assert tuple(got[:, 0]) == (0, 0, 0)
+    assert tuple(got[:, 1]) == (0, 1, 1)
+    assert tuple(got[:, 2]) == (1, 0, 1)
+    assert tuple(got[:, 4]) == (L, L, 0)
+
+
 def test_kernel_for_covers_every_band():
-    """Every band the wrapper admits has exactly one kernel, chosen by W
-    alone: the warp sweep at its five bands, the block sweep at the rest;
+    """Every band the wrapper admits has exactly one form, chosen by W
+    alone: the warp form at every W up to 512, the wide form beyond;
     anything else is refused on the CPU as on the card."""
     from falcon_tpu_torch.ops import align_cuda
     got = {W: align_cuda.kernel_for(W) for W in range(32, 1025, 32)}
     assert sorted(W for W, k in got.items() if k == "warp") == \
-        [32, 64, 128, 256, 512]
-    assert set(got.values()) == {"warp", "block"} and len(got) == 32
+        list(range(32, 513, 32))
+    assert sorted(W for W, k in got.items() if k == "wide") == \
+        list(range(544, 1025, 32))
+    assert len(got) == 32
     for W in (0, 16, 48, 1056, -32):
         with pytest.raises(ValueError):
             align_cuda.kernel_for(W)

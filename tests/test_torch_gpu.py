@@ -34,16 +34,22 @@ def rng():
     return np.random.default_rng(5)
 
 
+# C = W/32 cells a lane: the warp form at C 1-16 (3, 5 and 15 among them),
+# the wide form at C 17-32 (17, 24, 31, 32); W 96 and 1024 also at an L
+# that is no multiple of 16 and with more rows than one wave of warps
 @pytest.mark.parametrize("W,L,B", [(64, 512, 24), (256, 2048, 16),
                                    (32, 256, 40), (128, 1024, 70),
                                    (512, 1024, 24), (512, 4096, 12),
                                    (96, 512, 24), (1024, 2048, 8),
-                                   (256, 1000, 700)])
+                                   (256, 1000, 700), (160, 1024, 24),
+                                   (480, 1024, 16), (544, 1024, 16),
+                                   (768, 2048, 8), (992, 1024, 8),
+                                   (96, 1000, 6000), (1024, 1000, 2500)])
 def test_k1_matches_twin(rng, W, L, B):
-    """Every band of the warp kernel, two of the block kernel, an L that is
-    no multiple of 16, and more rows than one wave of warps."""
+    """Both forms of K1 against the twin, the edge rows included (one side
+    empty, an identical full-length pair)."""
     args = make_pairs(rng, B, L, W)
-    key = "extend" if align_cuda.kernel_for(W) == "warp" else "extend_block"
+    key = "extend" if align_cuda.kernel_for(W) == "warp" else "extend_wide"
     n = align_cuda.LAUNCHES[key]
     got = align_cuda.extend_batch_cuda(*args, W=W)
     torch.cuda.synchronize()

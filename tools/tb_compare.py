@@ -1,6 +1,6 @@
 """Time the kernels of two trees of falcon_tpu_torch on one card, in one call.
 
-    python tools/tb_compare.py --parent DIR [--change DIR] [--band W]
+    python tools/tb_compare.py --parent DIR [--change DIR] [--band W,...]
         [--shapes BxL,...] [--k1-shapes BxL,...] [--k4-shapes TxG,...]
         [--k5-shapes TxG,...] [--k6-shapes TxG,...]
 
@@ -11,9 +11,9 @@ trees are timed in the order parent, change, change, parent, each in a
 process of its own (both packages are called falcon_tpu_torch, and each
 builds its own kernels), on the same inputs made from --seed:
 
-  --band       W of K1, K2 and K3 (default 256, the warp routes; a band
-               of the block routes times those, with each tree's own
-               layout)
+  --band       the bands W of K1, K2 and K3, each timed in turn (default
+               256, the warp routes; a band of the block routes times
+               those, with each tree's own layout)
   --shapes     K2 and K3 at (B, L): chip_smoke.make_pairs without its edge
                rows, read-vs-read pairs at 8-15% error, lengths in
                [L/2, L]; every launch's trace exceeds L2
@@ -28,10 +28,11 @@ builds its own kernels), on the same inputs made from --seed:
                (chip_smoke.ladder_walk), as chip_smoke's dp_kernels times it
 
 An empty list skips its kernels.  Kernel times are CUDA events, the mean of
---reps launches after a warm-up.  One JSON line per (tree, kernel, shape),
-then a summary line per kernel and shape; `same` says whether the two
-trees' outputs agreed (a checksum of K2's end cells and K3's two streams,
-of K1's end cells, of K4's counts, of K5's six outputs or of K6's two).
+--reps launches after a warm-up.  One JSON line per (tree, kernel, shape,
+band), then a summary line per kernel, shape and band; `same` says whether
+the two trees' outputs agreed (a checksum of K2's end cells and K3's two
+streams, of K1's end cells, of K4's counts, of K5's six outputs or of
+K6's two).
 """
 import argparse
 import json
@@ -47,36 +48,16 @@ def worker(args):
     """Times the falcon_tpu_torch that PYTHONPATH puts first."""
     import numpy as np
     import torch
-    from chip_smoke import cuda_ms, dp_batch, ladder_walk, make_pairs
-    from falcon_tpu_torch.ops import align_cuda, align_tb_cuda, cns_dp_cuda
+    from chip_smoke import cuda_ms, dp_batch, ladder_walk
+    from falcon_tpu_torch.ops import align_cuda, cns_dp_cuda
     tree = os.path.dirname(os.path.dirname(os.path.dirname(
         align_cuda.__file__)))
 
     def out(**kv):
         print(json.dumps(dict(tree=tree, **kv)), flush=True)
     rng = np.random.default_rng(args.seed)
-    W = args.band
-    for B, L in args.shapes:
-        q, ql, t, tl = make_pairs(rng, B, L, W, edge=False)
-        (ends, trace), fwd = cuda_ms(
-            lambda: align_tb_cuda.tb_forward_cuda(q, ql, t, tl, W, 3),
-            reps=args.reps)
-        (mv, bs), bwd = cuda_ms(
-            lambda: align_tb_cuda.tb_backward_cuda(trace, ends, q, W),
-            reps=args.reps)
-        out(kernel="K2+K3", shape=[B, L], W=W, k2_ms=fwd, k3_ms=bwd,
-            checksum=[int(ends.long().sum()), int(mv.long().sum()),
-                      int(bs.long().sum())])
-        del mv, bs
-        del trace
-        torch.cuda.empty_cache()
-    for B, L in args.k1_shapes:
-        q, ql, t, tl = make_pairs(rng, B, L, W, edge=False)
-        ends, ms = cuda_ms(
-            lambda: align_cuda.extend_batch_cuda(q, ql, t, tl, W=W),
-            reps=args.reps)
-        out(kernel="K1", shape=[B, L], W=W, k1_ms=ms,
-            checksum=int(ends.sum()))
+    for W in args.band:
+        time_band(args, rng, W, out)
     for T, G in args.k4_shapes:
         msa, rest = dp_batch(rng, G, T, min(T // 2, 16384), D,
                              np.float32(0.3))
@@ -121,6 +102,34 @@ def worker(args):
         torch.cuda.empty_cache()
 
 
+def time_band(args, rng, W, out):
+    """K2 + K3 at --shapes, then K1 at --k1-shapes, at band W."""
+    import torch
+    from chip_smoke import cuda_ms, make_pairs
+    from falcon_tpu_torch.ops import align_cuda, align_tb_cuda
+    for B, L in args.shapes:
+        q, ql, t, tl = make_pairs(rng, B, L, W, edge=False)
+        (ends, trace), fwd = cuda_ms(
+            lambda: align_tb_cuda.tb_forward_cuda(q, ql, t, tl, W, 3),
+            reps=args.reps)
+        (mv, bs), bwd = cuda_ms(
+            lambda: align_tb_cuda.tb_backward_cuda(trace, ends, q, W),
+            reps=args.reps)
+        out(kernel="K2+K3", shape=[B, L], W=W, k2_ms=fwd, k3_ms=bwd,
+            checksum=[int(ends.long().sum()), int(mv.long().sum()),
+                      int(bs.long().sum())])
+        del mv, bs
+        del trace
+        torch.cuda.empty_cache()
+    for B, L in args.k1_shapes:
+        q, ql, t, tl = make_pairs(rng, B, L, W, edge=False)
+        ends, ms = cuda_ms(
+            lambda: align_cuda.extend_batch_cuda(q, ql, t, tl, W=W),
+            reps=args.reps)
+        out(kernel="K1", shape=[B, L], W=W, k1_ms=ms,
+            checksum=int(ends.sum()))
+
+
 def shape_list(text):
     return [tuple(int(x) for x in s.split("x"))
             for s in text.split(",") if s]
@@ -130,7 +139,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent")
     ap.add_argument("--change", default=HERE)
-    ap.add_argument("--band", type=int, default=256)
+    ap.add_argument("--band", type=lambda text: [int(x) for x in
+                                                 text.split(",")],
+                    default="256")
     ap.add_argument("--shapes", type=shape_list,
                     default="1024x1024,256x16384")
     ap.add_argument("--k1-shapes", type=shape_list,
@@ -173,13 +184,14 @@ def main(argv=None):
                 print(json.dumps(runs[-1]), flush=True)
     seen = []
     for r in runs:
-        if (r["kernel"], r["shape"]) not in seen:
-            seen.append((r["kernel"], r["shape"]))
-    for kernel, shape in seen:
-        rows = [r for r in runs if (r["kernel"], r["shape"]) == (kernel,
-                                                                 shape)]
+        if (r["kernel"], r["shape"], r.get("W")) not in seen:
+            seen.append((r["kernel"], r["shape"], r.get("W")))
+    for key in seen:
+        rows = [r for r in runs
+                if (r["kernel"], r["shape"], r.get("W")) == key]
+        kernel, shape, W = key
         print(json.dumps(dict(
-            card=card, kernel=kernel, shape=shape,
+            card=card, kernel=kernel, shape=shape, W=W,
             same=len({json.dumps(r["checksum"]) for r in rows}) == 1,
             **{"%s_%s" % (side, key): [r[key] for r in rows
                                        if r["side"] == side]

@@ -93,6 +93,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
             or as falcon_tpu's own tool ends), the path tools on the
             supervised run's 2-asm-falcon, fc_consensus's stream mode
             byte-equal to cns.runner in process
+  tools     falcon_tpu_torch.tools on the card, each through the run()
+            its command line calls: check_assembly on pipeline_dp's
+            p_ctg.fa against the simulated truth (mean identity >= 0.995),
+            verify_quick (VERIFY OK, K1-K3 launched), profile_extender at
+            (B, L) (16384, 1024), W 256 (the chain bit-equal to the twin),
+            profile_cns_dp at 300 kb (the staged rebuild equal to the
+            production DP path) and bench_accumulate at its defaults (K4
+            equal to its twin and to index_add_ of the decoded tags); each
+            tool's seconds and launches logged
 
 Every timing line carries the kernel's bound: the larger of its bytes
 (each input once, each output once) over 3.35 TB/s and its int32 operations
@@ -1790,6 +1799,43 @@ def phase_mains(card, asm_dir, workdir):
                          % (bad, same))
 
 
+def phase_tools(card, dp_dir):
+    """Every tool of falcon_tpu_torch.tools on the card, through the run()
+    its main calls, on its own: check_assembly scores pipeline_dp's
+    p_ctg.fa (in dp_dir, beside the truth genome.txt).  A tool that raises
+    or misses its check fails the run."""
+    from falcon_tpu_torch.tools import (bench_accumulate, check_assembly,
+                                        profile_cns_dp, profile_extender,
+                                        verify_quick)
+    t0 = time.time()
+    k123 = ("extend", "tb_fwd", "tb_bwd")
+    runs = (
+        ("check_assembly", check_assembly,
+         [os.path.join(dp_dir, "2-asm-falcon", "p_ctg.fa"),
+          os.path.join(dp_dir, "genome.txt"), "--device", "cuda"],
+         lambda r: (r["mean_identity"] or 0) >= 0.995),
+        ("verify_quick", verify_quick, ["--device", "cuda"],
+         lambda r: min(r["launches"].get(k, 0) for k in k123) > 0),
+        ("profile_extender", profile_extender,
+         ["16384", "1024", "--W", "256"], lambda r: r["bit_equal"]),
+        ("profile_cns_dp", profile_cns_dp, ["--genome-size", "300000"],
+         lambda r: r["parity"]),
+        ("bench_accumulate", bench_accumulate, [],
+         lambda r: r["parity"] and r["index_add_parity"]))
+    failed = []
+    for name, tool, argv, ok in runs:
+        t1 = time.time()
+        res = tool.run(tool.parse_args(argv))
+        log(**dict(res, phase="tools_" + name, card=card, argv=argv,
+                   seconds=round(time.time() - t1, 3)))
+        if not ok(res):
+            failed.append(name)
+    log(phase="tools", card=card, failed=failed,
+        seconds=round(time.time() - t0, 3))
+    if failed:
+        raise SystemExit("tools: %s missed their checks" % failed)
+
+
 def run_phases(args, rng, card, clock):
     """Every phase after env, in order; returns (the kernels list, the
     jax / falcon_tpu modules each pipeline_mp child loaded)."""
@@ -1801,8 +1847,10 @@ def run_phases(args, rng, card, clock):
     e_bands, t_bands = phase_tb_bands(rng, card, clock, lat)
     with tempfile.TemporaryDirectory() as d:
         launches, host_t, _ = phase_pipeline(args, d, dp=False)
-    with tempfile.TemporaryDirectory() as d:
-        launches_dp, dp_t, dp_digests = phase_pipeline(args, d, dp=True)
+    # kept to the end: the tools phase scores its p_ctg.fa
+    dp_dir = tempfile.TemporaryDirectory()
+    launches_dp, dp_t, dp_digests = phase_pipeline(args, dp_dir.name,
+                                                   dp=True)
     phase_pipeline_mesh(args, card, dp_t, dp_digests)
     with tempfile.TemporaryDirectory() as d:
         children = phase_pipeline_mp(args, d, card, dp_digests)
@@ -1825,6 +1873,8 @@ def run_phases(args, rng, card, clock):
                            "2-asm-falcon")
         phase_mains(card, asm, d)
     log(phase="slice_f_phases", seconds=round(time.time() - t_new, 3))
+    phase_tools(card, dp_dir.name)
+    dp_dir.cleanup()
     t_tb = t2[max(t2, key=lambda bl: (bl[1], bl[0]))]   # largest L bucket
     t_top = t_dp[buckets[-1]]
     t_blk = t_bands[(BLOCK_ROW_BAND, 1024)]

@@ -96,7 +96,17 @@ def add_self_tags(msa, seeds, tlens, T):
 
 
 def accumulate_tags_planes(msa, mvp, basep, bd, gidx, s2, max_diff, T, D):
-    """Plain twin of K4: fold one align batch's tags into msa, in place.
+    """Plain twin of K4: fold one align batch's tags into msa, in place
+    (tag_indices, then one add at each)."""
+    _add_at(msa, tag_indices(mvp, basep, bd, gidx, s2, max_diff,
+                             g_of(msa.numel(), T, D), T, D))
+    return msa
+
+
+def tag_indices(mvp, basep, bd, gidx, s2, max_diff, G, T, D):
+    """The decode half of accumulate_tags_planes: the flat count index
+    (msa_size layout) of every tag one align batch adds, int64, repeats
+    included.
 
     mvp:   [P, B] uint8 packed move stream (END->START, ops.align_tb)
     basep: [4P, B] int8 q base per column, START->END (ops.align_tb)
@@ -110,7 +120,6 @@ def accumulate_tags_planes(msa, mvp, basep, bd, gidx, s2, max_diff, T, D):
     P, B = mvp.shape
     S = 4 * P
     dev = mvp.device
-    G = g_of(msa.numel(), T, D)
     m = torch.stack([mvp & 3, (mvp >> 2) & 3, (mvp >> 4) & 3, mvp >> 6], 1)
     ms = m.reshape(S, B).flip(0).T.to(torch.int64)             # [B, S]
     valid = ms != 3
@@ -144,8 +153,7 @@ def accumulate_tags_planes(msa, mvp, basep, bd, gidx, s2, max_diff, T, D):
     idxd = l0_size(G, T) + (gT * (D - 1) + (delta - 1).clamp(0, D - 2)) \
         * (5 * NPCD) + base * NPCD + pcd
     live = ok & (tpos < T)
-    _add_at(msa, torch.where(adv, idx0, idxd)[live])
-    return msa
+    return torch.where(adv, idx0, idxd)[live]
 
 
 def consensus_scan(msa, G, T, D):

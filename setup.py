@@ -75,6 +75,11 @@ setup(
             "ftpu-torch-task = falcon_tpu_torch.mains.tasks:main",
             "ftpu-torch-hgap-adapt = falcon_tpu_torch.mains.hgap_adapt:main",
             "ftpu-torch-snakemake = falcon_tpu_torch.mains.gen_snakemake:main",
+            # the port's assembly check and quick verify (tools/*.py's);
+            # its profiles run as python -m falcon_tpu_torch.tools.<name>
+            "ftpu-torch-check-assembly = "
+            "falcon_tpu_torch.tools.check_assembly:main",
+            "ftpu-torch-verify-quick = falcon_tpu_torch.tools.verify_quick:main",
         ],
     },
 )

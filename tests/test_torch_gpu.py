@@ -23,6 +23,7 @@ from falcon_tpu_torch.ops.align_tb import (align_tb_batch, pack_moves,
                                            pack_trace, unpack_trace,
                                            walk_back)
 from falcon_tpu_torch.parallel import mesh as pm
+from falcon_tpu_torch.tools import bench_accumulate, profile_cns_dp
 
 pytestmark = pytest.mark.gpu
 
@@ -395,3 +396,28 @@ def test_graft_dryrun_over_two_shards_matches_one_card(rng):
     np.testing.assert_array_equal(got["specs"], ref["specs"])
     for g, r in zip(got["tb"], ref["tb"]):
         assert torch.equal(g, r)
+
+
+def test_profile_cns_dp_matches_production_on_the_card(rng):
+    """The tool's staged rebuild of the DP batch against dispatch_chunk_dp
+    + finish_chunk_dp on the card, supports without a range included: the
+    same consensus, tasks and launches of every kernel K2-K6."""
+    res = profile_cns_dp.run(profile_cns_dp.parse_args(
+        ["--genome-size", "40000", "--coverage", "10", "--unranged", "0.3",
+         "--repeat", "1"]))
+    assert res["parity"] is True
+    assert res["tasks_from_host_ranges"] > 0
+    assert min(res["launches_by_kernel"].get(k, 0) for k in (
+        "tb_fwd", "tb_bwd", "tags", "cns_scan", "cns_walk")) > 0
+
+
+def test_bench_accumulate_k4_matches_twin_on_the_card(rng):
+    """K4 against its twin and against index_add_ of the decoded tags, at
+    a cut of the tool's shapes."""
+    res = bench_accumulate.run(bench_accumulate.parse_args(
+        ["--B", "16", "--L", "4096", "--T", "4096", "--G", "8", "--reps",
+         "2"]))
+    assert res["parity"] is True and res["index_add_parity"] is True
+    assert res["k4_launches"] == {"tags": 3}
+    assert res["plain_launches"] == res["index_add_launches"] == {}
+

@@ -1,0 +1,6 @@
+"""K1's share of its roofline (percent) over the extension tasks."""
+from ftt_bench import readers
+
+
+def read(run):
+    return readers.kernel_roofline(run, "K1")

@@ -24,7 +24,6 @@ _host_range.
 import collections
 import logging
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -38,6 +37,7 @@ from ..ops.align_device import DeviceExtender, gather_pad2, pack_tasks
 from ..ops.align_tb import moves_to_alignment, unpack_moves
 from ..ops.align_tb_cuda import (align_tb_batch_cuda, kernel_for,
                                  trace_row_bytes)
+from ..utils import trace
 from ..utils.device import resolve_device
 from . import runner
 
@@ -224,10 +224,12 @@ class DeviceCns:
             B = self._batch_for(L)
             for ofs in range(0, len(idxs), B):
                 chunk = idxs[ofs:ofs + B]
-                packed = [torch.from_numpy(a).to(self.device) for a in
+                packed = [trace.to_device(a, self.device) for a in
                           pack_tasks(tasks, chunk, len(chunk), L)]
-                q, t = gather_pad2(*packed, L, 4, 5)
-                yield chunk, self._align_tb(q, packed[2], t, packed[4])
+                with trace.span("cns.launch"):
+                    q, t = gather_pad2(*packed, L, 4, 5)
+                    out = self._align_tb(q, packed[2], t, packed[4])
+                yield chunk, out
 
     def dispatch_tasks(self, tasks):
         """Queue every task batch on the device without waiting.
@@ -235,11 +237,11 @@ class DeviceCns:
         tasks: [(q_codes, t_codes)].  Returns the in-flight list for
         collect_tasks: (task indices, (best_d, packed moves)) per batch,
         the device tensors kept referenced until they are copied back."""
-        t0 = time.time()
-        inflight = [(chunk, (outs[2], outs[3]))
-                    for chunk, outs in self._align_batches(tasks)]
+        with trace.span("cns.queue", clock=True) as sp:
+            inflight = [(chunk, (outs[2], outs[3]))
+                        for chunk, outs in self._align_batches(tasks)]
         LOG.info("cns.device: dispatched %d aln tasks, %d batches in %.1fs",
-                 len(tasks), len(inflight), time.time() - t0)
+                 len(tasks), len(inflight), sp.seconds)
         return inflight
 
     def collect_tasks(self, tasks, inflight):
@@ -247,31 +249,30 @@ class DeviceCns:
         Returns per-task (dist, n_cols, q_aln, t_aln) (ASCII bytes;
         n_cols == 0 when no alignment)."""
         results = [None] * len(tasks)
-        t0 = time.time()
         t_host = 0.0
         use_native = native.available()
-        for chunk, (bd_d, mvp_d) in inflight:
-            bd = bd_d.cpu().numpy()
-            mvp = mvp_d.cpu().numpy()
-            t1 = time.time()
-            if use_native:
-                alns = native.moves_to_alns(
-                    mvp, np.arange(len(chunk), dtype=np.int32),
-                    [tasks[idx][0] for idx in chunk],
-                    [tasks[idx][1] for idx in chunk])
-                for k, idx in enumerate(chunk):
-                    ncols, qa, ta = alns[k]
-                    results[idx] = (int(bd[k]), ncols, qa, ta)
-            else:
-                mv = unpack_moves(mvp)
-                for k, idx in enumerate(chunk):
-                    qc, tc = tasks[idx]
-                    qa, ta = moves_to_alignment(qc, tc, mv[:, k])
-                    results[idx] = (int(bd[k]), len(qa), qa, ta)
-            t_host += time.time() - t1
+        with trace.span("cns.collect", clock=True) as sp:
+            for chunk, (bd_d, mvp_d) in inflight:
+                bd = trace.to_host(bd_d)
+                mvp = trace.to_host(mvp_d)
+                with trace.span("cns.rebuild", clock=True) as rb:
+                    if use_native:
+                        alns = native.moves_to_alns(
+                            mvp, np.arange(len(chunk), dtype=np.int32),
+                            [tasks[idx][0] for idx in chunk],
+                            [tasks[idx][1] for idx in chunk])
+                        for k, idx in enumerate(chunk):
+                            ncols, qa, ta = alns[k]
+                            results[idx] = (int(bd[k]), ncols, qa, ta)
+                    else:
+                        mv = unpack_moves(mvp)
+                        for k, idx in enumerate(chunk):
+                            qc, tc = tasks[idx]
+                            qa, ta = moves_to_alignment(qc, tc, mv[:, k])
+                            results[idx] = (int(bd[k]), len(qa), qa, ta)
+                t_host += rb.seconds
         LOG.info("cns.device: collected %d aln tasks in %.1fs "
-                 "(host reconstruct %.1fs)", len(tasks), time.time() - t0,
-                 t_host)
+                 "(host reconstruct %.1fs)", len(tasks), sp.seconds, t_host)
         return results
 
     def align_tasks(self, tasks):
@@ -390,19 +391,25 @@ class DeviceCns:
                 tasks.append((seq_to_codes(sup)[s1:e1], sc[s2:e2]))
                 gidx.append(g)
                 s2s.append(s2)
-        msa = cns_dp.alloc_msa(G, T, D, dev)
-        cns_dp.add_self_tags(msa, torch.from_numpy(seeds).to(dev),
-                             torch.from_numpy(tlens).to(dev), T)
+        with trace.span("cns.launch"):
+            msa = cns_dp.alloc_msa(G, T, D, dev)
+        seeds = trace.to_device(seeds, dev)
+        tlens = trace.to_device(tlens, dev)
+        with trace.span("cns.launch"):
+            cns_dp.add_self_tags(msa, seeds, tlens, T)
         max_diff = np.float32(1.0 - cfg.min_idt)
         gidx = np.asarray(gidx, np.int32)
         s2s = np.asarray(s2s, np.int32)
         for rows, (_, _, bd, mvp, bases) in self._align_batches(tasks):
-            dpk.accumulate_tags_planes_cuda(
-                msa, mvp, bases, bd, torch.from_numpy(gidx[rows]).to(dev),
-                torch.from_numpy(s2s[rows]).to(dev), max_diff, T, D)
-        scan = dpk.consensus_scan_cuda(msa, G, T, D)
-        out, counts = dpk.backtrack_walk_cuda(*scan, int(cfg.min_cov), G, T,
-                                              D)
+            g = trace.to_device(gidx[rows], dev)
+            s2 = trace.to_device(s2s[rows], dev)
+            with trace.span("cns.launch"):
+                dpk.accumulate_tags_planes_cuda(msa, mvp, bases, bd, g, s2,
+                                                max_diff, T, D)
+        with trace.span("cns.launch"):
+            scan = dpk.consensus_scan_cuda(msa, G, T, D)
+            out, counts = dpk.backtrack_walk_cuda(*scan, int(cfg.min_cov), G,
+                                                  T, D)
         done = None
         if dev.type == "cuda":
             done = torch.cuda.Event()
@@ -415,47 +422,50 @@ class DeviceCns:
         groups bucketed by T = max(1024, next power of two of the seed
         length), G padded to a power of two in [8, _dp_group_cap(T)].
         Returns the state for finish_chunk_dp."""
-        t0 = time.time()
         buckets = {}
-        for ci, (_, seed_seq, _) in enumerate(chunk):
-            T = max(1024, 1 << int(np.ceil(np.log2(max(len(seed_seq), 2)))))
-            buckets.setdefault(T, []).append(ci)
         batches = []
         n_tasks = 0
-        for T in sorted(buckets):
-            cis = buckets[T]
-            Gmax = self._dp_group_cap(T)
-            for ofs in range(0, len(cis), Gmax):
-                sub = cis[ofs:ofs + Gmax]
-                G = min(Gmax, max(8, 1 << int(np.ceil(np.log2(
-                    max(len(sub), 2))))))
-                st = self._dispatch_dp_batch(chunk, sub, G, T, cfg)
-                n_tasks += st[3]
-                batches.append(st)
-                # bound the batches in flight: wait for the walk of the
-                # batch before last before queueing more
-                if len(batches) > 2 and batches[-3][4] is not None:
-                    batches[-3][4].synchronize()
+        with trace.span("cns.queue", clock=True) as sp:
+            for ci, (_, seed_seq, _) in enumerate(chunk):
+                T = max(1024, 1 << int(np.ceil(np.log2(max(len(seed_seq),
+                                                           2)))))
+                buckets.setdefault(T, []).append(ci)
+            for T in sorted(buckets):
+                cis = buckets[T]
+                Gmax = self._dp_group_cap(T)
+                for ofs in range(0, len(cis), Gmax):
+                    sub = cis[ofs:ofs + Gmax]
+                    G = min(Gmax, max(8, 1 << int(np.ceil(np.log2(
+                        max(len(sub), 2))))))
+                    st = self._dispatch_dp_batch(chunk, sub, G, T, cfg)
+                    n_tasks += st[3]
+                    batches.append(st)
+                    # bound the batches in flight: wait for the walk of the
+                    # batch before last before queueing more
+                    if len(batches) > 2 and batches[-3][4] is not None:
+                        with trace.span("cns.wait_device"):
+                            batches[-3][4].synchronize()
         LOG.info("cns.device-dp: chunk of %d groups -> %d DP batches "
                  "(%d aln tasks, T buckets %s) dispatched in %.1fs",
                  len(chunk), len(batches), n_tasks, sorted(buckets),
-                 time.time() - t0)
+                 sp.seconds)
         return chunk, batches
 
     def finish_chunk_dp(self, state):
         """Copy back each DP batch's emitted codes and decode them.
         Returns [(seed_id, consensus_str)] in chunk order."""
         chunk, batches = state
-        t0 = time.time()
         out = [None] * len(chunk)
-        for sub, rows, counts, _, _ in batches:
-            rows = rows.cpu().numpy()
-            counts = counts.cpu().numpy()
-            for g, ci in enumerate(sub):
-                out[ci] = (chunk[ci][0],
-                           cns_dp.assemble_compacted(rows[g], counts[g]))
+        with trace.span("cns.collect", clock=True) as sp:
+            for sub, rows, counts, _, _ in batches:
+                rows = trace.to_host(rows)
+                counts = trace.to_host(counts)
+                with trace.span("cns.rebuild"):
+                    for g, ci in enumerate(sub):
+                        out[ci] = (chunk[ci][0], cns_dp.assemble_compacted(
+                            rows[g], counts[g]))
         LOG.info("cns.device-dp: collected %d groups in %.1fs", len(chunk),
-                 time.time() - t0)
+                 sp.seconds)
         return out
 
     def _msa(self, t_len, alns, min_cov):
@@ -503,37 +513,47 @@ def run_consensus_device(groups, cfg, out, dev=None, progress_cb=None):
     n_pulled = 0
     chunk_mark = 0
 
-    def finish(state, mark):
+    def finish(state, mark, key):
         # the one finisher thread writes `out`, in dispatch order; the
         # state holds each batch's device tensors until they are copied
         nonlocal emitted
         if dev.device.type == "cuda":
             torch.cuda.set_device(dev.device)
-        for seed_id, cns in finish_chunk(state):
-            emitted += runner.format_output(cns, seed_id, cfg, out)
-        if progress_cb is not None:
-            progress_cb(mark)
+        with trace.span("cns.finish", key=key) as sp:
+            done = finish_chunk(state)
+            sp.add(groups=len(done))
+        with trace.span("cns.write"):
+            for seed_id, cns in done:
+                emitted += runner.format_output(cns, seed_id, cfg, out)
+            if progress_cb is not None:
+                progress_cb(mark)
 
     # depth-2 software pipeline: the main thread gates groups and queues
     # device batches; the finisher copies back, rebuilds and runs the MSA
     # (the C++ calls release the GIL)
-    t0 = time.time()
-    with ThreadPoolExecutor(1) as finisher:
+    with trace.span("cns.run", clock=True) as run_sp, \
+            ThreadPoolExecutor(1) as finisher:
 
         def flush():
             nonlocal chunk, n_tasks
             if not chunk:
                 return
-            state = dispatch_chunk(chunk, cfg)
+            key = trace.new_key()
+            with trace.span("cns.dispatch", key=key, groups=len(chunk),
+                            tasks=n_tasks):
+                state = dispatch_chunk(chunk, cfg)
             chunk = []
             n_tasks = 0
-            futs.append(finisher.submit(finish, state, chunk_mark))
+            futs.append(finisher.submit(trace.carry(finish), state,
+                                        chunk_mark, key))
             while len(futs) > 2:
-                futs.pop(0).result()
+                with trace.span("cns.wait_finisher"):
+                    futs.pop(0).result()
 
         for seed_id, items in groups:
             n_pulled += 1
-            gated = gate_group_ranged(seed_id, items, cfg)
+            with trace.span("cns.gate"):
+                gated = gate_group_ranged(seed_id, items, cfg)
             if gated is None:
                 continue
             seed_seq, sups = gated
@@ -546,6 +566,7 @@ def run_consensus_device(groups, cfg, out, dev=None, progress_cb=None):
         if progress_cb is not None and n_pulled > chunk_mark:
             futs.append(finisher.submit(progress_cb, n_pulled))
         for f in futs:
-            f.result()
-    LOG.info("cns.device: total %.1fs", time.time() - t0)
+            with trace.span("cns.wait_finisher"):
+                f.result()
+    LOG.info("cns.device: total %.1fs", run_sp.seconds)
     return emitted

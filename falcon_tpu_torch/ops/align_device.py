@@ -20,12 +20,12 @@ a row with no such cell returns (0, 0, 0).
 """
 import logging
 import os
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from ..utils.system import heartbeat_tick
 
 LOG = logging.getLogger(__name__)
@@ -184,9 +184,8 @@ def gather_pad2(cat, q_offs, q_lens, t_offs, t_lens, L, fill_q, fill_t):
 
     def one(offs, lens, fill):
         idx = (offs.long()[:, None] + ar).clamp_max(cap)
-        return torch.where(ar < lens[:, None], cat[idx],
-                           torch.tensor(fill, dtype=torch.int8,
-                                        device=cat.device))
+        return torch.where(ar < lens[:, None], cat[idx], trace.to_device(
+            torch.tensor(fill, dtype=torch.int8), cat.device))
 
     return one(q_offs, q_lens, fill_q), one(t_offs, t_lens, fill_t)
 
@@ -205,8 +204,9 @@ def gather_specs2_packed(packed, q_off, q_len, q_dir, t_off, t_len, t_dir,
         idx = (off.long()[:, None] + ar * dr.long()[:, None]).clamp(0, cap)
         b = (packed[idx >> 4] >> (2 * (idx & 15))) & 3
         return torch.where(ar < ln[:, None], b.to(torch.int8),
-                           torch.tensor(fill, dtype=torch.int8,
-                                        device=packed.device))
+                           trace.to_device(torch.tensor(fill,
+                                                        dtype=torch.int8),
+                                           packed.device))
 
     return one(q_off, q_len, q_dir, fill_q), one(t_off, t_len, t_dir,
                                                  fill_t)
@@ -288,12 +288,14 @@ class DeviceExtender:
 
     def _drain(self, inflight, results, keep):
         """Copy back all but the newest `keep` in-flight batches; returns
-        the seconds spent waiting."""
-        t0 = time.time()
-        while len(inflight) > keep:
-            chunk, out = inflight.pop(0)
-            results[chunk] = out.cpu().numpy().T[:len(chunk)]
-        return time.time() - t0
+        the seconds spent waiting (its extender.wait span's)."""
+        if len(inflight) <= keep:
+            return 0.0
+        with trace.span("extender.wait", clock=True) as sp:
+            while len(inflight) > keep:
+                chunk, out = inflight.pop(0)
+                results[chunk] = trace.to_host(out).T[:len(chunk)]
+        return sp.seconds
 
     def run(self, tasks):
         """tasks: list of (q_codes uint8, t_codes uint8)."""
@@ -311,25 +313,27 @@ class DeviceExtender:
         ladder_of = self._bucket_ladder(
             np.asarray([max(len(qc), len(tc), 1) for qc, tc in tasks]))
         inflight = []
-        t0 = time.time()
         t_wait = 0.0
         n_batches = 0
-        for L in np.unique(ladder_of):
-            L = int(L)
-            idxs = sorted(np.nonzero(ladder_of == L)[0].tolist(),
-                          key=lambda i: len(tasks[i][0]) + len(tasks[i][1]))
-            B = self._batch_for(L)
-            for ofs in range(0, len(idxs), B):
-                chunk = idxs[ofs:ofs + B]
-                inflight.append((chunk, sharded_tasks_extend(
-                    self.mesh, tasks, chunk, L, self.W, self.end_bonus)))
-                n_batches += 1
-                heartbeat_tick()
-                t_wait += self._drain(inflight, results, self.inflight_cap)
-        t_wait += self._drain(inflight, results, 0)
+        with trace.span("extender.run", clock=True, tasks=len(tasks)) as sp:
+            for L in np.unique(ladder_of):
+                L = int(L)
+                idxs = sorted(np.nonzero(ladder_of == L)[0].tolist(),
+                              key=lambda i: len(tasks[i][0]) +
+                              len(tasks[i][1]))
+                B = self._batch_for(L)
+                for ofs in range(0, len(idxs), B):
+                    chunk = idxs[ofs:ofs + B]
+                    inflight.append((chunk, sharded_tasks_extend(
+                        self.mesh, tasks, chunk, L, self.W,
+                        self.end_bonus)))
+                    n_batches += 1
+                    heartbeat_tick()
+                    t_wait += self._drain(inflight, results,
+                                          self.inflight_cap)
+            t_wait += self._drain(inflight, results, 0)
         LOG.info("extender: %d tasks, %d batches; dispatch %.1fs wait "
-                 "%.1fs", len(tasks), n_batches, time.time() - t0 - t_wait,
-                 t_wait)
+                 "%.1fs", len(tasks), n_batches, sp.seconds - t_wait, t_wait)
         return results
 
     def run_specs(self, flat, q_off, q_len, q_dir, t_off, t_len, t_dir):
@@ -341,38 +345,39 @@ class DeviceExtender:
         results = np.zeros((n, 3), np.int64)
         if n == 0:
             return results
-        t0 = time.time()
-        cap = np.minimum(q_len, t_len) + (self.W // 2 + 8)
-        q_len = np.minimum(q_len, cap).astype(np.int32)
-        t_len = np.minimum(t_len, cap).astype(np.int32)
-        Ls = self._bucket_ladder(np.maximum(np.maximum(q_len, t_len), 1))
-        words = replicate(torch.from_numpy(
-            pack_flat_2bit(flat).astype(np.int64)), self.mesh)
-        specs = np.stack([q_off, q_len, q_dir, t_off, t_len, t_dir]) \
-            .astype(np.int32)
         inflight = []
         t_wait = 0.0
         n_batches = 0
-        buckets = np.unique(Ls)
-        for L in buckets:
-            idxs = np.nonzero(Ls == L)[0]
-            idxs = idxs[np.argsort((q_len + t_len)[idxs], kind="stable")]
-            L = int(L)
-            B = self._batch_for(L)
-            self._account_cells(q_len[idxs], t_len[idxs])
-            for ofs in range(0, len(idxs), B):
-                chunk = idxs[ofs:ofs + B]
-                # each shard's specs go to its device in one copy
-                inflight.append((chunk, sharded_specs_extend(
-                    self.mesh, words, specs[:, chunk], L, self.W,
-                    self.end_bonus)))
-                n_batches += 1
-                heartbeat_tick()
-                t_wait += self._drain(inflight, results, self.inflight_cap)
-        t_wait += self._drain(inflight, results, 0)
+        with trace.span("extender.run", clock=True, tasks=n) as sp:
+            cap = np.minimum(q_len, t_len) + (self.W // 2 + 8)
+            q_len = np.minimum(q_len, cap).astype(np.int32)
+            t_len = np.minimum(t_len, cap).astype(np.int32)
+            Ls = self._bucket_ladder(np.maximum(np.maximum(q_len, t_len), 1))
+            words = replicate(torch.from_numpy(
+                pack_flat_2bit(flat).astype(np.int64)), self.mesh)
+            specs = np.stack([q_off, q_len, q_dir, t_off, t_len, t_dir]) \
+                .astype(np.int32)
+            buckets = np.unique(Ls)
+            for L in buckets:
+                idxs = np.nonzero(Ls == L)[0]
+                idxs = idxs[np.argsort((q_len + t_len)[idxs], kind="stable")]
+                L = int(L)
+                B = self._batch_for(L)
+                self._account_cells(q_len[idxs], t_len[idxs])
+                for ofs in range(0, len(idxs), B):
+                    chunk = idxs[ofs:ofs + B]
+                    # each shard's specs go to its device in one copy
+                    inflight.append((chunk, sharded_specs_extend(
+                        self.mesh, words, specs[:, chunk], L, self.W,
+                        self.end_bonus)))
+                    n_batches += 1
+                    heartbeat_tick()
+                    t_wait += self._drain(inflight, results,
+                                          self.inflight_cap)
+            t_wait += self._drain(inflight, results, 0)
         LOG.info("extender(specs): %d tasks, %d buckets, %d batches; "
                  "dispatch %.1fs wait %.1fs", n, len(buckets), n_batches,
-                 time.time() - t0 - t_wait, t_wait)
+                 sp.seconds - t_wait, t_wait)
         return results
 
     def _account_cells(self, qlen, tlen):

@@ -47,6 +47,7 @@ from ..ops.align_device import gather_pad2, gather_specs2_packed, pack_tasks
 from ..ops.align_tb_cuda import align_tb_batch_cuda
 from ..ops.cns_dp_cuda import (accumulate_tags_planes_cuda,
                                backtrack_walk_cuda, consensus_scan_cuda)
+from ..utils import trace
 from ..utils.device import resolve_device
 from .distributed import want_distributed
 
@@ -113,14 +114,15 @@ def shard_bounds(B, n):
 def replicate(x, mesh):
     """{device: x on it} for every distinct device of the mesh: one copy to
     each, none to the device x is on."""
-    return {dev: x if x.device == dev else x.to(dev) for dev in set(mesh)}
+    return {dev: x if x.device == dev else trace.to_device(x, dev)
+            for dev in set(mesh)}
 
 
 def _on(x, dev, dtype):
     """x (numpy array or tensor) as a contiguous dtype tensor on dev."""
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(dev, dtype).contiguous()
+        x = np.ascontiguousarray(x)
+    return trace.to_device(x, dev, dtype).contiguous()
 
 
 def _gather(parts, mesh, B):
@@ -322,5 +324,5 @@ class ShardedExtender:
 
     def extend(self, q, qlen, t, tlen):
         """As launch, waited on: numpy arrays (i, j, d) of length B."""
-        out = self.launch(q, qlen, t, tlen).cpu().numpy()
+        out = trace.to_host(self.launch(q, qlen, t, tlen))
         return out[0], out[1], out[2]

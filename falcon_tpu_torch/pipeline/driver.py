@@ -59,7 +59,7 @@ from ..ops import native as native_ops
 from ..overlap import engine, filter as ofilter
 from ..overlap import table as otable
 from ..parallel import distributed
-from ..utils import system
+from ..utils import system, trace
 from ..utils.device import resolve_device
 from . import stats as stats_mod
 
@@ -168,60 +168,74 @@ class Pipeline:
 
         prep = {"j": -1, "index": None, "aviews": {}}
 
-        def prepare(i, j):
-            if j != prep["j"]:
-                prep["index"] = None
-                prep["index"] = engine.BlockIndex(
-                    store, blocks[j], params,
-                    build_tables=not native_ops.available())
-                prep["j"] = j
-            aviews = prep["aviews"]
-            if i not in aviews:
-                if len(aviews) >= AVIEW_LRU:
-                    aviews.pop(next(iter(aviews)))
-                aviews[i] = engine.AView(store, blocks[i], params)
-            else:
-                aviews[i] = aviews.pop(i)
-            cands, idx, (t_index, t_chain) = engine.chain_blocks(
-                store, blocks[i], blocks[j], params, same_block=(i == j),
-                index=prep["index"], a_view=aviews[i])
+        def prepare(key, i, j):
+            with trace.span("overlap.chain", key=key) as sp:
+                if j != prep["j"]:
+                    prep["index"] = None
+                    prep["index"] = engine.BlockIndex(
+                        store, blocks[j], params,
+                        build_tables=not native_ops.available())
+                    prep["j"] = j
+                aviews = prep["aviews"]
+                if i not in aviews:
+                    if len(aviews) >= AVIEW_LRU:
+                        aviews.pop(next(iter(aviews)))
+                    aviews[i] = engine.AView(store, blocks[i], params)
+                else:
+                    aviews[i] = aviews.pop(i)
+                cands, idx, (t_index, t_chain) = engine.chain_blocks(
+                    store, blocks[i], blocks[j], params, same_block=(i == j),
+                    index=prep["index"], a_view=aviews[i])
+                sp.add(candidates=len(cands))
             return cands, idx, t_index, t_chain
 
         prefetch = aligner is not None and \
             os.environ.get("FTPU_PIPELINE_CHAIN", "1") != "0"
+        # a key a block pair: its chain (on the prefetch thread) and its
+        # alignment share it
+        keys = [trace.new_key() for _ in todo]
         with ThreadPoolExecutor(1) as prep_exec:
             fut = None
             for n, (k, i, j, pf) in enumerate(todo):
-                t0 = time.time()
                 if fut is None:
-                    fut = prep_exec.submit(prepare, i, j)
-                cands, idx, t_index, t_chain = fut.result()
+                    fut = prep_exec.submit(trace.carry(prepare), keys[n], i,
+                                           j)
+                with trace.span("overlap.wait_chain", key=keys[n],
+                                clock=True) as waited:
+                    cands, idx, t_index, t_chain = fut.result()
                 fut = None
                 if prefetch and n + 1 < len(todo):
-                    fut = prep_exec.submit(prepare, todo[n + 1][1],
+                    fut = prep_exec.submit(trace.carry(prepare),
+                                           keys[n + 1], todo[n + 1][1],
                                            todo[n + 1][2])
-                t1 = time.time()
-                ovls = engine.align_candidates(store, idx, blocks[i], cands,
-                                               params, aligner)
+                with trace.span("overlap.align", key=keys[n],
+                                clock=True) as aligned:
+                    ovls = engine.align_candidates(store, idx, blocks[i],
+                                                   cands, params, aligner)
+                    aligned.add(records=len(ovls))
                 results[k] = ovls
                 LOG.info("%s: block (%d,%d) %d/%d: %d cands -> %d "
                          "overlaps; index %.1fs chain %.1fs align %.1fs "
                          "(pair wall %.1fs)", tag, i, j, k + 1, len(pairs),
                          len(cands), len(ovls), t_index, t_chain,
-                         time.time() - t1, time.time() - t0)
+                         aligned.seconds, waited.seconds + aligned.seconds)
                 if pf:
-                    np.save(pf + ".tmp.npy", ovls)
-                    os.replace(pf + ".tmp.npy", pf)
-                    system.touch_heartbeat(self.out_dir)
-                    system.maybe_recycle(self.out_dir, tag + " overlap")
+                    with trace.span("overlap.checkpoint"):
+                        np.save(pf + ".tmp.npy", ovls)
+                        os.replace(pf + ".tmp.npy", pf)
+                        system.touch_heartbeat(self.out_dir)
+                        system.maybe_recycle(self.out_dir, tag + " overlap")
         prep.clear()
-        tbl = otable.concat([results[k] for k in range(len(pairs))])
-        occ = aligner.ext.occupancy() if aligner is not None else None
-        if occ:
-            self.timings["%s_occupancy" % tag] = round(occ, 4)
-        if n_hosts > 1:
-            tbl = distributed.allgather_table(tbl)
-        return engine.emit_symmetric(tbl)
+        with trace.span("overlap.table") as sp:
+            tbl = otable.concat([results[k] for k in range(len(pairs))])
+            occ = aligner.ext.occupancy() if aligner is not None else None
+            if occ:
+                self.timings["%s_occupancy" % tag] = round(occ, 4)
+            if n_hosts > 1:
+                tbl = distributed.allgather_table(tbl)
+            tbl = engine.emit_symmetric(tbl)
+            sp.add(rows=len(tbl))
+        return tbl
 
     @staticmethod
     def _drop_pair_ckpts(ckpt_dir, tag):
@@ -243,22 +257,24 @@ class Pipeline:
         system.touch_heartbeat(self.out_dir)
 
         store_fn = os.path.join(self.dir0, "raw_reads")
-        if _resumable(store_fn + ".npz", "phase0 readstore"):
-            store = readstore.ReadStore.load(store_fn)
-        else:
-            fofn = self.cfg["input_fofn"]
-            paths = fasta.read_fofn(fofn) if fofn.endswith(".fofn") \
-                else [fofn]
-            store = readstore.ReadStore.from_fasta_files(
-                paths, min_len=p.raw_min_len)
-            if p.mask_dust or p.mask_tandem:
-                t_mask = time.time()
-                store.build_masks(dust=p.mask_dust, tandem=p.mask_tandem)
-                self.timings["phase0_masking"] = time.time() - t_mask
-            store.split_blocks(int(p.raw_block_mb * 1e6))
-            store.save(store_fn)
-            integrity.write_sidecar(store_fn + ".npz", rows=len(store))
-            system.touch_heartbeat(self.out_dir)
+        with trace.span("pipeline.store") as sp:
+            if _resumable(store_fn + ".npz", "phase0 readstore"):
+                store = readstore.ReadStore.load(store_fn)
+            else:
+                fofn = self.cfg["input_fofn"]
+                paths = fasta.read_fofn(fofn) if fofn.endswith(".fofn") \
+                    else [fofn]
+                store = readstore.ReadStore.from_fasta_files(
+                    paths, min_len=p.raw_min_len)
+                if p.mask_dust or p.mask_tandem:
+                    t_mask = time.time()
+                    store.build_masks(dust=p.mask_dust, tandem=p.mask_tandem)
+                    self.timings["phase0_masking"] = time.time() - t_mask
+                store.split_blocks(int(p.raw_block_mb * 1e6))
+                store.save(store_fn)
+                integrity.write_sidecar(store_fn + ".npz", rows=len(store))
+                system.touch_heartbeat(self.out_dir)
+            sp.add(reads=len(store), bases=store.total_bases)
         LOG.info("phase0: %d raw reads, %d bases, %d blocks",
                  len(store), store.total_bases, len(store.blocks))
 
@@ -279,10 +295,11 @@ class Pipeline:
             recs = self._overlap_store(store, self._engine_params(0),
                                        "phase0", ckpt_dir=self.dir0)
             self.timings["phase0_overlap"] = time.time() - t_start
-            otable.write_table(ovl_fn + ".tmp", recs, terminator=True)
-            os.rename(ovl_fn + ".tmp", ovl_fn)
-            integrity.write_sidecar(ovl_fn, rows=len(recs))
-            self._drop_pair_ckpts(self.dir0, "phase0")
+            with trace.span("overlap.table", rows=len(recs)):
+                otable.write_table(ovl_fn + ".tmp", recs, terminator=True)
+                os.rename(ovl_fn + ".tmp", ovl_fn)
+                integrity.write_sidecar(ovl_fn, rows=len(recs))
+                self._drop_pair_ckpts(self.dir0, "phase0")
         if p.target == "overlapping":
             LOG.info("phase0: target=overlapping; stopping after overlap")
             return None
@@ -328,8 +345,11 @@ class Pipeline:
                 live_idx += 1
                 if live_idx <= skip:
                     continue
-                yield self._make_group(store, rows, cutoff,
-                                       as_codes=use_dev_cns)
+                with trace.span("pipeline.make_group") as sp:
+                    group = self._make_group(store, rows, cutoff,
+                                             as_codes=use_dev_cns)
+                    sp.add(supports=len(group[1]) - 1 if group else 0)
+                yield group
 
         with open(preads_fn + ".tmp", out_mode) as out_f:
 
@@ -369,11 +389,12 @@ class Pipeline:
         LOG.info("phase0: %d pread sequences -> %s", emitted, preads_fn)
 
         try:
-            report = stats_mod.preassembly_report(
-                store, preads_fn, cutoff, p.genome_size)
-            with open(os.path.join(self.dir0, "pre_assembly_stats.json"),
-                      "w") as f:
-                json.dump(report, f, indent=2)
+            with trace.span("pipeline.stats"):
+                report = stats_mod.preassembly_report(
+                    store, preads_fn, cutoff, p.genome_size)
+                with open(os.path.join(self.dir0,
+                                       "pre_assembly_stats.json"), "w") as f:
+                    json.dump(report, f, indent=2)
         except Exception:
             LOG.exception("phase0: stats report failed (non-fatal)")
         return preads_fn
@@ -511,10 +532,13 @@ class Pipeline:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         os.makedirs(profile_dir, exist_ok=True)
         LOG.info("profiling to %s", profile_dir)
+        since = trace.mark()
         with torch.profiler.profile(activities=acts) as prof:
             p_ctg = self._run()
         trace_fn = os.path.join(profile_dir, "trace.json")
         prof.export_chrome_trace(trace_fn)
+        # the port's own spans over the device's lanes (cat "ftt")
+        trace.append_to_chrome_trace(trace_fn, trace.records(since))
         busy, by_name = device_busy(trace_fn)
         self.timings["device_busy_s"] = busy
         self.timings["device_idle_share"] = 1 - busy / self.timings["total"]
@@ -525,6 +549,13 @@ class Pipeline:
         LOG.info("device busy %.3fs of %.3fs (idle share %.4f)", busy,
                  self.timings["total"], self.timings["device_idle_share"])
         return p_ctg
+
+    def _assemble(self, preads):
+        """Phases 1 and 2 on the preads."""
+        with trace.span("pipeline.phase1"):
+            ovl_fn = self.phase1(preads)
+        with trace.span("pipeline.phase2"):
+            return self.phase2(ovl_fn)
 
     def _run(self):
         t0 = time.time()
@@ -539,13 +570,14 @@ class Pipeline:
                 fofn = self.cfg["input_fofn"]
                 paths = fasta.read_fofn(fofn) if fofn.endswith(".fofn") \
                     else [fofn]
-                p_ctg = self.phase2(self.phase1(paths))
+                p_ctg = self._assemble(paths)
         else:
-            preads = self.phase0()
+            with trace.span("pipeline.phase0"):
+                preads = self.phase0()
             if preads is None or p.target == "pre-assembly":
                 p_ctg = preads
             else:
-                p_ctg = self.phase2(self.phase1(preads))
+                p_ctg = self._assemble(preads)
         self.timings["total"] = time.time() - t0
         with open(os.path.join(self.out_dir, "timings.json"), "w") as f:
             json.dump(self.timings, f, indent=2, sort_keys=True)

@@ -24,6 +24,7 @@ from falcon_tpu_torch.ops.align_tb import (align_tb_batch, pack_moves,
                                            walk_back)
 from falcon_tpu_torch.parallel import mesh as pm
 from falcon_tpu_torch.tools import bench_accumulate, profile_cns_dp
+from falcon_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
 
@@ -421,3 +422,101 @@ def test_bench_accumulate_k4_matches_twin_on_the_card(rng):
     assert res["k4_launches"] == {"tags": 3}
     assert res["plain_launches"] == res["index_add_launches"] == {}
 
+
+
+def test_spans_record_under_a_cuda_only_profiler(rng):
+    """The benchmark's traced window opens torch.profiler with CUDA
+    activity alone: the recorder records inside it, on the opening thread
+    and, through carry(), on another."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def work():
+        with trace.span("t.thread"):
+            pass
+
+    since = trace.mark()
+    assert not trace.active()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        assert trace.active()
+        with trace.span("t.main"):
+            with ThreadPoolExecutor(1) as ex:
+                ex.submit(trace.carry(work)).result()
+    assert [s.name for s in trace.records(since)] == ["t.thread", "t.main"]
+
+
+def test_span_clock_is_the_device_traces(rng, tmp_path):
+    """A span around a ~50 ms torch.cuda._sleep and its synchronize holds
+    the kernel's interval in the exported trace (baseTimeNanoseconds +
+    ts), within 1 ms at each end."""
+    import json
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with trace.span("t.sleep") as sp:
+            torch.cuda._sleep(10 ** 8)             # ~50 ms at 1980 MHz
+            torch.cuda.synchronize()
+    fn = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(fn)
+    with open(fn) as f:
+        d = json.load(f)
+    base = int(d["baseTimeNanoseconds"])
+    k = [e for e in d["traceEvents"] if e.get("cat") == "kernel"]
+    assert len(k) == 1                          # ATen's spin_kernel
+    k0 = base + k[0]["ts"] * 1e3
+    k1 = k0 + k[0]["dur"] * 1e3
+    assert k1 - k0 > 1e7                        # the sleep ran > 10 ms
+    assert abs(k0 - sp.t0) < 1e6, (k0 - sp.t0) / 1e6
+    assert abs(sp.t1 - k1) < 1e6, (sp.t1 - k1) / 1e6
+    assert sp.t0 - 1e6 <= k0 and k1 <= sp.t1 + 1e6
+
+
+def test_copy_helper_counts_pageable_and_pinned_bytes(rng):
+    a = torch.arange(1000, dtype=torch.int32)
+    h = np.arange(333, dtype=np.int16)
+    p = torch.from_numpy(h).pin_memory()
+    with trace.recording() as got:
+        x = trace.to_device(a, "cuda")
+        y = trace.to_device(h, "cuda:0", torch.int32)
+        z = trace.to_device(p, "cuda")
+        trace.to_device(x, "cuda")               # on the device: no copy
+        back = trace.to_host(y)
+    assert [s.name for s in got] == ["copy.h2d"] * 3 + ["copy.d2h"]
+    assert got[0].counts == {"bytes": 4000, "pageable": 4000}
+    assert got[1].counts == {"bytes": 666, "pageable": 666}
+    assert got[2].counts == {"bytes": 666, "pageable": 0}
+    assert got[3].counts == {"bytes": 1332}
+    assert torch.equal(x.cpu(), a) and torch.equal(z.cpu(), p)
+    assert back.tolist() == list(range(333))
+
+
+def test_dp_dispatch_spans_on_the_card(rng):
+    """run_consensus_device on the DP path with four groups a DP batch
+    (dp_budget 1): the in-flight bound waits (cns.wait_device) from the
+    third batch on, and every copy the dispatch makes is pageable."""
+    import io
+    from falcon_tpu_torch.cns.device import run_consensus_device
+    from falcon_tpu_torch.cns.runner import ConsensusConfig
+    groups = []
+    for g in range(12):
+        truth = rng.integers(0, 4, 900).astype(np.uint8)
+        items = [("%09d" % (10 * g), truth, None)]
+        for k in range(4):
+            sup = truth.copy()
+            hit = rng.random(900) < 0.03
+            sup[hit] = (sup[hit] + 1) % 4
+            items.append(("%09d" % (10 * g + k + 1), sup, (0, 900, 0, 900)))
+        groups.append((items[0][0], items))
+    cfg = ConsensusConfig(min_cov=2, min_idt=0.70, min_n_read=2,
+                          min_cov_aln=2)
+    dev = DeviceCns(device="cuda", use_dp=True, dp_budget=1,
+                    chunk_tasks=10 ** 6)
+    with trace.recording() as got:
+        n = run_consensus_device(iter(groups), cfg, io.StringIO(), dev=dev)
+    assert n == 12 and sum(dev.dp_batches.values()) == 3
+    names = [s.name for s in got]
+    assert names.count("cns.wait_device") == 1
+    assert names.count("cns.dispatch") == names.count("cns.finish") == 1
+    h2d = [s.counts for s in got if s.name == "copy.h2d"]
+    assert h2d and all(c["bytes"] == c["pageable"] > 0 for c in h2d)

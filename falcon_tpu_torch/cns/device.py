@@ -18,12 +18,15 @@ group, the host-MSA path otherwise):
 DeviceCns replaces falcon_tpu's DeviceCns; run_consensus_device replaces
 its namesake.  The host halves are copies of falcon_tpu/cns/device.py's:
 the group gates (gate_group_ranged, _clamp_range, _range_ok), the code
-conversions, and the methods dispatch_chunk, finish_chunk, _msa and
-_host_range.
+conversions, and the methods dispatch_chunk, _msa and _host_range.
+finish_chunk runs falcon_tpu's host MSA on msa_workers() threads, one pool
+a run_consensus_device call, where falcon_tpu runs two a chunk.
 """
 import collections
+import contextlib
 import logging
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -127,6 +130,24 @@ def _clamp_range(rng, sup_len, seed_len):
     return s1, e1, s2, e2
 
 
+def msa_workers(cfg, nproc=None):
+    """Threads for finish_chunk's host MSA: FALCON's --n-core when the
+    falcon_sense_option gives it (0: the finisher runs the MSA itself),
+    else the job's cns nproc, else the cores this process may run on,
+    shared among the run's FTPU_NUM_PROCESSES processes, less one for the
+    main thread that gates and dispatches meanwhile, and never under 2."""
+    if cfg.n_core is not None:
+        return cfg.n_core
+    if nproc:
+        return nproc
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:      # no affinity mask on this platform
+        cores = os.cpu_count() or 1
+    procs = max(1, int(os.environ.get("FTPU_NUM_PROCESSES") or 1))
+    return max(2, cores // procs - 1)
+
+
 def _range_ok(rng):
     """generate_consensus range gates (falcon.c:605-612)."""
     s1, e1, s2, e2 = rng
@@ -190,6 +211,20 @@ class DeviceCns:
             os.environ.get("FTPU_CNS_CHUNK_TASKS") or
             (32768 if use_dp else 8192))
         self.dp_batches = collections.Counter()    # T -> DP batches run
+        self._msa_pool, self._msa_threads = None, 1  # set by msa_pool()
+
+    @contextlib.contextmanager
+    def msa_pool(self, workers):
+        """Inside the block finish_chunk runs its groups' MSA on `workers`
+        threads; with workers 0, as outside any such block, on the thread
+        that calls it."""
+        with (ThreadPoolExecutor(workers) if workers else
+              contextlib.nullcontext()) as pool:
+            self._msa_pool, self._msa_threads = pool, max(workers, 1)
+            try:
+                yield
+            finally:
+                self._msa_pool, self._msa_threads = None, 1
 
     def _trace_row_bytes(self, L):
         """Bytes of trace one batch row of padded length L holds between
@@ -311,8 +346,11 @@ class DeviceCns:
         return (chunk, cfg, tasks, task_of, group_alns, inflight)
 
     def finish_chunk(self, state):
-        """Collect one dispatched chunk and run the host MSA/DP.
-        Returns [(seed_id, consensus_str)]."""
+        """Collect one dispatched chunk and run the host MSA/DP on
+        msa_pool()'s threads, the groups longest first (seed length times
+        alignments), so that no worker is left alone with a long group at
+        the chunk's end.  Returns [(seed_id, consensus_str)] in chunk
+        order."""
         chunk, cfg, tasks, task_of, group_alns, inflight = state
         max_diff = 1.0 - cfg.min_idt
         res = self.collect_tasks(tasks, inflight)
@@ -320,31 +358,42 @@ class DeviceCns:
             dist, ncols, qa, ta = r
             if ncols > 500 and (float(dist) / float(ncols)) < max_diff:
                 group_alns[gi].append((si, (qa, ta, s1, s2)))
-        import time as _time
-        from concurrent.futures import ThreadPoolExecutor
-        t_msa = _time.time()
 
         def one(gi):
+            # the native MSA releases the GIL; its time is the worker's
+            # busy time
             seed_id, seed_seq, sups = chunk[gi]
             alns = [a for _, a in sorted(group_alns[gi], key=lambda x: x[0])]
             if not alns:
-                return (seed_id, "")
-            return (seed_id, self._msa(len(seed_seq), alns, cfg.min_cov))
+                return (seed_id, ""), 0
+            t0 = time.perf_counter_ns()
+            cns = self._msa(len(seed_seq), alns, cfg.min_cov)
+            return (seed_id, cns), time.perf_counter_ns() - t0
 
-        # the native MSA releases the GIL; two workers keep both host
-        # cores busy while the device aligns the next chunk
-        with ThreadPoolExecutor(2) as tpe:
-            out = list(tpe.map(one, range(len(chunk))))
-        LOG.info("cns.device: chunk of %d groups: msa %.1fs",
-                 len(chunk), _time.time() - t_msa)
-        return out
+        pool = self._msa_pool
+        with trace.span("cns.msa", key=trace.open_key(), clock=True,
+                        groups=len(chunk),
+                        workers=self._msa_threads) as sp:
+            if pool is None:
+                done = [one(gi) for gi in range(len(chunk))]
+            else:
+                run = trace.carry(one)
+                order = sorted(range(len(chunk)), key=lambda gi: -len(
+                    chunk[gi][1]) * len(group_alns[gi]))
+                futs = {gi: pool.submit(run, gi) for gi in order}
+                done = [futs[gi].result() for gi in range(len(chunk))]
+            sp.add(busy_us=sum(ns for _, ns in done) // 1000)
+        LOG.info("cns.device: chunk of %d groups: msa %.1fs on %d threads",
+                 len(chunk), sp.seconds, self._msa_threads)
+        return [out for out, _ in done]
 
     def consensus_chunk(self, chunk, cfg):
         """chunk: [(seed_id, seed_seq, sups)] from gate_group_ranged.
         Returns [(seed_id, consensus_str)]."""
         if self.use_dp:
             return self.finish_chunk_dp(self.dispatch_chunk_dp(chunk, cfg))
-        return self.finish_chunk(self.dispatch_chunk(chunk, cfg))
+        with self.msa_pool(msa_workers(cfg)):
+            return self.finish_chunk(self.dispatch_chunk(chunk, cfg))
 
     # -- device-DP path: tags, scan and walk on the device ----------------
     def _dp_group_cap(self, T):
@@ -492,20 +541,25 @@ class DeviceCns:
         return (r.s1, r.e1, r.s2, r.e2)
 
 
-def run_consensus_device(groups, cfg, out, dev=None, progress_cb=None):
+def run_consensus_device(groups, cfg, out, dev=None, progress_cb=None,
+                         nproc=None):
     """Drop-in for cns.runner.run_consensus on the device path.
 
     groups: iterable of (seed_id, [(read_id, seq, rng), ...]), seed first.
     Writes pread FASTA to `out`; returns the number of sequences emitted.
     progress_cb(k) runs after each chunk's output is written, with k the
     number of input groups fully processed (emission order is dispatch
-    order), as in falcon_tpu."""
+    order), as in falcon_tpu.  nproc: the job's cns nproc, which sizes the
+    host-MSA path's pool where cfg has no --n-core (msa_workers)."""
     dev = dev or DeviceCns()
     if dev.use_dp:
         dispatch_chunk, finish_chunk = dev.dispatch_chunk_dp, \
             dev.finish_chunk_dp
+        workers = 0
     else:
         dispatch_chunk, finish_chunk = dev.dispatch_chunk, dev.finish_chunk
+        workers = msa_workers(cfg, nproc)
+        LOG.info("cns.device: host MSA on %d threads", max(workers, 1))
     emitted = 0
     chunk = []
     n_tasks = 0
@@ -529,9 +583,10 @@ def run_consensus_device(groups, cfg, out, dev=None, progress_cb=None):
                 progress_cb(mark)
 
     # depth-2 software pipeline: the main thread gates groups and queues
-    # device batches; the finisher copies back, rebuilds and runs the MSA
-    # (the C++ calls release the GIL)
-    with trace.span("cns.run", clock=True) as run_sp, \
+    # device batches; the finisher copies back, rebuilds and fans the MSA
+    # out over the pool (the C++ calls release the GIL)
+    with dev.msa_pool(workers), \
+            trace.span("cns.run", clock=True) as run_sp, \
             ThreadPoolExecutor(1) as finisher:
 
         def flush():

@@ -372,7 +372,8 @@ class Pipeline:
                 LOG.info("phase0: device consensus (falcon_tpu_torch), %s "
                          "path", "device-DP" if dev.use_dp else "host-MSA")
                 emitted = run_consensus_device(
-                    live, ccfg, out_f, dev=dev, progress_cb=save_progress)
+                    live, ccfg, out_f, dev=dev, progress_cb=save_progress,
+                    nproc=p.cns_nproc)
                 if dev.use_dp:
                     self.timings["phase0_cns_dp_batches"] = dict(
                         sorted(dev.dp_batches.items()))

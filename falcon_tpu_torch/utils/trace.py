@@ -135,6 +135,15 @@ def new_key():
     return next(_keys)
 
 
+def open_key():
+    """The key of the innermost span open and recorded on this thread
+    that has one; None where there is none."""
+    for sp in reversed(_local.stack):
+        if sp.key is not None:
+            return sp.key
+    return None
+
+
 def carry(fn):
     """fn, to run on another thread, recording there when the calling
     thread records now (a profiler window is open only on the thread that

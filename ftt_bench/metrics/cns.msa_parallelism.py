@@ -1,0 +1,19 @@
+"""Host-MSA workers busy at once: the busy time the cns.msa spans count
+(busy_us, each group's C++ MSA call timed inside its worker) over the
+spans' own time, both in the window (a span the window cuts counts the
+cut share of its busy time).  None where the program records no cns.msa
+(the DP path, or a tree without the span)."""
+from ftt_bench import progspans
+
+
+def read(run):
+    busy = secs = 0.0
+    for s in progspans.program_records():
+        if s.name != "cns.msa" or s.t1 <= s.t0:
+            continue
+        a, b = s.t0 / 1e9, s.t1 / 1e9
+        inside = min(b, run.w1) - max(a, run.w0)
+        if inside > 0:
+            secs += inside
+            busy += s.counts.get("busy_us", 0) / 1e6 * inside / (b - a)
+    return busy / secs if secs > 0 else None

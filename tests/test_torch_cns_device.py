@@ -1,10 +1,12 @@
 """The port's run_consensus_device against falcon_tpu's host-MSA device
 path (DeviceCns(use_dp=False), XLA alignment on the CPU): byte-equal
 preads, on the inputs of tests/test_cns_device.py plus a few more
-groups."""
+groups, at every size of the port's MSA pool; and the pool's sizing
+rule."""
 import io
 
 import numpy as np
+import pytest
 
 from falcon_tpu.cns import device as jdev
 from falcon_tpu.cns import runner
@@ -13,14 +15,15 @@ from falcon_tpu_torch.cns import device as tdev
 from tests.test_cns_device import A, noisy
 
 
-def _groups():
+def _groups(n_short=0):
     """test_device_consensus_quality_vs_host's group, two more with
-    ranged and partial supports, and one the gates drop."""
+    ranged and partial supports, one the gates drop, and n_short short
+    ones (12 put more groups in a chunk of 40 tasks than 7 workers)."""
     out = []
-    for gi, (n, nsup, err, seed) in enumerate(((4000, 14, 0.12, 5),
-                                               (2500, 8, 0.10, 6),
-                                               (1800, 6, 0.15, 7),
-                                               (900, 2, 0.10, 8))):
+    shapes = ((4000, 14, 0.12, 5), (2500, 8, 0.10, 6), (1800, 6, 0.15, 7),
+              (900, 2, 0.10, 8)) + tuple(
+        (900 + 150 * (k % 5), 4, 0.10, 20 + k) for k in range(n_short))
+    for gi, (n, nsup, err, seed) in enumerate(shapes):
         rng = np.random.RandomState(seed)
         truth = rng.randint(0, 4, n).astype(np.uint8)
         seed_seq = A[truth].tobytes().decode()
@@ -40,23 +43,64 @@ def _groups():
     return out
 
 
-def test_run_consensus_device_matches_jax():
-    cfg = runner.ConsensusConfig(min_cov=2, min_idt=0.70, min_n_read=4,
-                                 min_cov_aln=4, output_multi=False)
-    ref_out, ref_marks = io.StringIO(), []
-    n_ref = jdev.run_consensus_device(
-        iter(_groups()), cfg, ref_out,
-        dev=jdev.DeviceCns(use_dp=False, use_pallas=False, chunk_tasks=16),
-        progress_cb=ref_marks.append)
+CHUNK_TASKS = 40
+
+
+def _cfg(n_core=None):
+    return runner.ConsensusConfig(min_cov=2, min_idt=0.70, min_n_read=4,
+                                  min_cov_aln=4, output_multi=False,
+                                  n_core=n_core)
+
+
+@pytest.fixture(scope="module")
+def jax_preads():
+    """falcon_tpu's host-MSA device path: (count, preads, progress
+    marks)."""
+    out, marks = io.StringIO(), []
+    n = jdev.run_consensus_device(
+        iter(_groups(12)), _cfg(), out,
+        dev=jdev.DeviceCns(use_dp=False, use_pallas=False,
+                           chunk_tasks=CHUNK_TASKS),
+        progress_cb=marks.append)
+    return n, out.getvalue(), marks
+
+
+@pytest.mark.parametrize("n_core", [None, 0, 1, 7])
+def test_run_consensus_device_matches_jax(jax_preads, n_core):
+    """The same preads and progress marks whatever runs the MSA: the
+    sizing rule's default (None), the finisher itself (0), or a pool of
+    1 or 7 threads fed longest group first."""
+    n_ref, ref_out, ref_marks = jax_preads
     got_out, got_marks = io.StringIO(), []
     n_got = tdev.run_consensus_device(
-        iter(_groups()), cfg, got_out,
-        dev=tdev.DeviceCns(device="cpu", chunk_tasks=16),
+        iter(_groups(12)), _cfg(n_core), got_out,
+        dev=tdev.DeviceCns(device="cpu", chunk_tasks=CHUNK_TASKS),
         progress_cb=got_marks.append)
-    assert n_ref == 3
+    assert n_ref == 15
+    assert max(np.diff([0] + ref_marks)) > 7     # a chunk over 7 groups
     assert n_got == n_ref
-    assert got_out.getvalue() == ref_out.getvalue()
+    assert got_out.getvalue() == ref_out
     assert got_marks == ref_marks
+
+
+@pytest.mark.parametrize("n_core, nproc, cores, procs, want", [
+    (5, 3, 8, None, 5),       # --n-core wins
+    (0, 3, 8, None, 0),       # --n-core 0: the finisher runs the MSA
+    (None, 3, 8, None, 3),    # then the job's cns nproc
+    (None, 0, 8, None, 7),    # then the affinity mask less the main thread
+    (None, None, 32, "4", 7),  # shared among the run's processes
+    (None, None, 8, "1", 7),
+    (None, None, 4, "2", 2),   # never under 2
+    (None, None, 1, None, 2),
+])
+def test_msa_workers(monkeypatch, n_core, nproc, cores, procs, want):
+    monkeypatch.setattr(tdev.os, "sched_getaffinity",
+                        lambda pid: set(range(cores)), raising=False)
+    if procs is None:
+        monkeypatch.delenv("FTPU_NUM_PROCESSES", raising=False)
+    else:
+        monkeypatch.setenv("FTPU_NUM_PROCESSES", procs)
+    assert tdev.msa_workers(_cfg(n_core), nproc) == want
 
 
 def test_align_tasks_match_jax():

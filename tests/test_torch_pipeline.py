@@ -210,7 +210,7 @@ def test_copied_halves_match_their_source():
     for name in ("seq_to_codes", "seq_to_ascii", "gate_group_ranged",
                  "_clamp_range", "_range_ok"):
         assert same(getattr(tdev, name), getattr(jdev, name)), name
-    for name in ("dispatch_chunk", "finish_chunk", "_msa", "_host_range"):
+    for name in ("dispatch_chunk", "_msa", "_host_range"):
         assert same(getattr(tdev.DeviceCns, name),
                     getattr(jdev.DeviceCns, name)), name
     for name in ("OverlapParams", "AView", "BlockIndex", "chain_blocks",

@@ -2,8 +2,9 @@
 nothing is recorded while no profiler window is open and no recording()
 block runs; inside one, every span of the port's hot path appears, nested
 per thread, consensus chunks keyed across the main and finisher threads;
-the copy helpers count what they copy; FTPU_PROFILE's trace.json carries
-the spans on the trace's own base."""
+the host MSA's fan-out is one span a chunk; the copy helpers count what
+they copy; FTPU_PROFILE's trace.json carries the spans on the trace's own
+base."""
 import io
 import json
 import os
@@ -209,6 +210,27 @@ def test_a_key_joins_its_spans_across_threads(request, which):
     chunks = keyed("cns.dispatch")
     assert sum(s.counts["groups"] for s in chunks.values()) == \
         sum(s.counts["groups"] for s in keyed("cns.finish").values())
+
+
+def test_host_msa_records_one_msa_span_a_chunk():
+    """The host-MSA path records one cns.msa span a chunk, inside the
+    chunk's cns.finish on the finisher thread and under its key, with the
+    chunk's groups, the pool's threads and the workers' busy time."""
+    cfg = ConsensusConfig(min_cov=2, min_idt=0.70, min_n_read=2,
+                          min_cov_aln=2, n_core=3)
+    dev = tdev.DeviceCns(device="cpu", use_dp=False, chunk_tasks=10)
+    with trace.recording() as got:
+        n = tdev.run_consensus_device(iter(_groups()), cfg, io.StringIO(),
+                                      dev=dev)
+    finish = {s.id: s for s in got if s.name == "cns.finish"}
+    msa = [s for s in got if s.name == "cns.msa"]
+    assert n == 4 and len(finish) == len(msa) == 2
+    for m in msa:
+        f = finish[m.parent]
+        assert (m.tid, m.key) == (f.tid, f.key) and m.key is not None
+        assert m.counts["groups"] == f.counts["groups"] == 2
+        assert m.counts["workers"] == 3
+        assert 0 < m.counts["busy_us"] <= 3 * (m.t1 - m.t0) / 1e3
 
 
 def test_copy_counts_match_the_arrays(dp_consensus):

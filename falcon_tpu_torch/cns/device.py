@@ -20,7 +20,10 @@ its namesake.  The host halves are copies of falcon_tpu/cns/device.py's:
 the group gates (gate_group_ranged, _clamp_range, _range_ok), the code
 conversions, and the methods dispatch_chunk, _msa and _host_range.
 finish_chunk runs falcon_tpu's host MSA on msa_workers() threads, one pool
-a run_consensus_device call, where falcon_tpu runs two a chunk.
+a run_consensus_device call, where falcon_tpu runs two a chunk; before it,
+collect_tasks rebuilds the chunk's alignments on the same pool, from move
+planes the device lays out lane-major, where falcon_tpu rebuilds them on
+one thread.
 """
 import collections
 import contextlib
@@ -157,6 +160,41 @@ def _range_ok(rng):
             abs(l1 - l2) <= int(0.5 * 0.10 * (l1 + l2)))
 
 
+def walk_lanes(plane, host, lo, hi):
+    """The native walk of native.moves_to_alns over lanes lo..hi of one
+    batch: plane its packed moves laid out lane-major, [B, P]; host its
+    pack_tasks arrays (the tasks' codes where the upload packed them, in
+    lane order: codes, q offsets, q lengths, t offsets, t lengths).  A
+    slice costs a few numpy calls and one release of the GIL whatever its
+    rows; moves_to_alns concatenates the tasks' codes anew, a copy a
+    task, and with that on each of 7 threads one chunk's collect_tasks
+    took 0.45-0.92 s against 0.11-0.28 s without (8192 tasks of 6-14 kb;
+    the 8-core host of an NVIDIA H100 80GB HBM3).  Returns [(n_cols,
+    q_aln bytes, t_aln bytes)] a lane, as moves_to_alns."""
+    cat, q_offs, q_lens, t_offs, t_lens = host
+    if not (0 <= lo < hi <= min(plane.shape[0], len(q_offs))):
+        raise ValueError("lanes %d..%d of a batch of %d" % (
+            lo, hi, plane.shape[0]))
+    plane = np.ascontiguousarray(plane, dtype=np.uint8)
+    n = hi - lo
+    out_offs = np.zeros(n + 1, np.int64)
+    np.cumsum(q_lens[lo:hi].astype(np.int64) + t_lens[lo:hi],
+              out=out_offs[1:])
+    qa = np.empty(int(out_offs[-1]), np.uint8)
+    ta = np.empty(int(out_offs[-1]), np.uint8)
+    q_offs = q_offs[lo:hi].astype(np.int64)
+    t_offs = t_offs[lo:hi].astype(np.int64)
+    lanes = np.arange(lo, hi, dtype=np.int32)
+    ncols = np.zeros(n, np.int32)
+    native.get_lib().ftpu_moves_to_alns_c(
+        plane.ctypes.data, plane.shape[1], n, lanes.ctypes.data,
+        cat.ctypes.data, q_offs.ctypes.data, cat.ctypes.data,
+        t_offs.ctypes.data, qa.ctypes.data, ta.ctypes.data,
+        out_offs.ctypes.data, ncols.ctypes.data)
+    return [(c, qa[o:o + c].tobytes(), ta[o:o + c].tobytes())
+            for c, o in zip(ncols.tolist(), out_offs.tolist())]
+
+
 class DeviceCns:
     """Chunked device consensus over gated groups."""
 
@@ -247,7 +285,8 @@ class DeviceCns:
     def _align_batches(self, tasks):
         """Queue K2 + K3 over every task, length-bucketed on the ladder and
         length-sorted within a bucket; yields (task indices, (best_i,
-        best_j, best_d, packed moves, bases)) per batch, on the device."""
+        best_j, best_d, packed moves, bases) on the device, the batch's
+        host pack_tasks arrays) per batch."""
         buckets = {}
         for idx, (qc, tc) in enumerate(tasks):
             m = max(len(qc), len(tc), 1)
@@ -259,55 +298,90 @@ class DeviceCns:
             B = self._batch_for(L)
             for ofs in range(0, len(idxs), B):
                 chunk = idxs[ofs:ofs + B]
-                packed = [trace.to_device(a, self.device) for a in
-                          pack_tasks(tasks, chunk, len(chunk), L)]
+                host = pack_tasks(tasks, chunk, len(chunk), L)
+                packed = [trace.to_device(a, self.device) for a in host]
                 with trace.span("cns.launch"):
                     q, t = gather_pad2(*packed, L, 4, 5)
                     out = self._align_tb(q, packed[2], t, packed[4])
-                yield chunk, out
+                yield chunk, out, host
 
     def dispatch_tasks(self, tasks):
         """Queue every task batch on the device without waiting.
 
         tasks: [(q_codes, t_codes)].  Returns the in-flight list for
-        collect_tasks: (task indices, (best_d, packed moves)) per batch,
-        the device tensors kept referenced until they are copied back."""
+        collect_tasks: (task indices, (best_d, packed moves laid out
+        lane-major [B, P], the host pack_tasks arrays)) per batch, the
+        device tensors kept referenced until they are copied back.  K3
+        writes the moves [P, B]; the device transposes each batch's plane
+        after its K3, so that the copy back lands a task's row at a time,
+        as the host walk reads it, and the walk reads the tasks' codes
+        where the upload packed them."""
         with trace.span("cns.queue", clock=True) as sp:
-            inflight = [(chunk, (outs[2], outs[3]))
-                        for chunk, outs in self._align_batches(tasks)]
+            inflight = []
+            for chunk, outs, host in self._align_batches(tasks):
+                with trace.span("cns.launch"):
+                    plane = outs[3].t().contiguous()
+                inflight.append((chunk, (outs[2], plane, host)))
         LOG.info("cns.device: dispatched %d aln tasks, %d batches in %.1fs",
                  len(tasks), len(inflight), sp.seconds)
         return inflight
 
     def collect_tasks(self, tasks, inflight):
         """Copy dispatched batches back and rebuild the alignments.
-        Returns per-task (dist, n_cols, q_aln, t_aln) (ASCII bytes;
-        n_cols == 0 when no alignment)."""
+        Inside msa_pool() each batch's lanes are cut into min(workers,
+        rows) contiguous slices walked on the pool's threads (the native
+        walk releases the GIL) while this thread copies the next batch
+        back; with no pool, or on the plain twin, this thread rebuilds a
+        batch at a time.  Returns per-task (dist, n_cols, q_aln, t_aln) in
+        task order (ASCII bytes; n_cols == 0 when no alignment)."""
         results = [None] * len(tasks)
-        t_host = 0.0
         use_native = native.available()
+        pool = self._msa_pool if use_native else None
+        workers = self._msa_threads if pool is not None else 1
+
+        def rebuild(chunk, bd, plane, host, lo, hi):
+            # lanes lo..hi of one batch; returns the ns it took
+            t0 = time.perf_counter_ns()
+            part = chunk[lo:hi]
+            if use_native:
+                alns = walk_lanes(plane, host, lo, hi)
+            else:
+                mv = unpack_moves(plane.T)
+                alns = []
+                for k, idx in enumerate(part, lo):
+                    qa, ta = moves_to_alignment(*tasks[idx], mv[:, k])
+                    alns.append((len(qa), qa, ta))
+            for idx, d, (ncols, qa, ta) in zip(part, bd[lo:hi].tolist(),
+                                                alns):
+                results[idx] = (d, ncols, qa, ta)
+            return time.perf_counter_ns() - t0
+
+        def fetch(b):
+            chunk, (bd_d, plane_d, host) = inflight[b]
+            return chunk, trace.to_host(bd_d), trace.to_host(plane_d), host
+
+        busy, futs = [], []
+        run = trace.carry(rebuild)
         with trace.span("cns.collect", clock=True) as sp:
-            for chunk, (bd_d, mvp_d) in inflight:
-                bd = trace.to_host(bd_d)
-                mvp = trace.to_host(mvp_d)
-                with trace.span("cns.rebuild", clock=True) as rb:
-                    if use_native:
-                        alns = native.moves_to_alns(
-                            mvp, np.arange(len(chunk), dtype=np.int32),
-                            [tasks[idx][0] for idx in chunk],
-                            [tasks[idx][1] for idx in chunk])
-                        for k, idx in enumerate(chunk):
-                            ncols, qa, ta = alns[k]
-                            results[idx] = (int(bd[k]), ncols, qa, ta)
-                    else:
-                        mv = unpack_moves(mvp)
-                        for k, idx in enumerate(chunk):
-                            qc, tc = tasks[idx]
-                            qa, ta = moves_to_alignment(qc, tc, mv[:, k])
-                            results[idx] = (int(bd[k]), len(qa), qa, ta)
-                t_host += rb.seconds
+            got = fetch(0) if inflight else None
+            with trace.span("cns.rebuild", clock=True, batches=len(inflight),
+                            workers=workers) as rb:
+                for b in range(len(inflight)):
+                    rows = len(got[0])
+                    n = min(workers, rows)
+                    for i in range(n):
+                        lo, hi = rows * i // n, rows * (i + 1) // n
+                        if pool is None:
+                            busy.append(rebuild(*got, lo, hi))
+                        else:
+                            futs.append(pool.submit(run, *got, lo, hi))
+                    if b + 1 < len(inflight):
+                        got = fetch(b + 1)
+                busy += [f.result() for f in futs]
+                rb.add(slices=len(busy), busy_us=sum(busy) // 1000)
         LOG.info("cns.device: collected %d aln tasks in %.1fs "
-                 "(host reconstruct %.1fs)", len(tasks), sp.seconds, t_host)
+                 "(host reconstruct %.1fs)", len(tasks), sp.seconds,
+                 rb.seconds)
         return results
 
     def align_tasks(self, tasks):
@@ -449,7 +523,7 @@ class DeviceCns:
         max_diff = np.float32(1.0 - cfg.min_idt)
         gidx = np.asarray(gidx, np.int32)
         s2s = np.asarray(s2s, np.int32)
-        for rows, (_, _, bd, mvp, bases) in self._align_batches(tasks):
+        for rows, (_, _, bd, mvp, bases), _ in self._align_batches(tasks):
             g = trace.to_device(gidx[rows], dev)
             s2 = trace.to_device(s2s[rows], dev)
             with trace.span("cns.launch"):

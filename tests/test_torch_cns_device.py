@@ -113,3 +113,95 @@ def test_align_tasks_match_jax():
     ref = jdev.DeviceCns(use_dp=False, use_pallas=False).align_tasks(tasks)
     got = tdev.DeviceCns(device="cpu").align_tasks(tasks)
     assert got == ref
+
+
+@pytest.fixture(scope="module")
+def rebuild_case():
+    """Short tasks in two ladder buckets, dispatched on the CPU twin with
+    13 rows a batch: batches of 13 and 1 rows at L 1024 and of 5 at L
+    2048.  Returns (tasks, device, in-flight batches, the no-pool
+    result, falcon_tpu's result, the planes the no-pool collect handed
+    the native walk)."""
+    rng = np.random.RandomState(5)
+    tasks = []
+    for n in [300 + 50 * k for k in range(14)] + [1300 + 150 * k
+                                                  for k in range(5)]:
+        t = rng.randint(0, 4, n).astype(np.uint8)
+        tasks.append((noisy(t, 0.12, rng), t))
+    dev = tdev.DeviceCns(device="cpu")
+    dev.max_rows = 13
+    inflight = dev.dispatch_tasks(tasks)
+    assert sorted(len(chunk) for chunk, _ in inflight) == [1, 5, 13]
+    with pytest.MonkeyPatch.context() as mp:
+        planes = _record_planes(mp)
+        serial = dev.collect_tasks(tasks, inflight)
+    ref = jdev.DeviceCns(use_dp=False, use_pallas=False).align_tasks(tasks)
+    return tasks, dev, inflight, serial, ref, planes
+
+
+def _record_planes(mp):
+    """Wrap the rebuild's walk (cns.device.walk_lanes) to note the shape
+    of every plane it gets and whether it is C-contiguous."""
+    seen = []
+    walk = tdev.walk_lanes
+
+    def recorded(plane, *args):
+        seen.append((plane.shape, plane.flags.c_contiguous))
+        return walk(plane, *args)
+
+    mp.setattr(tdev, "walk_lanes", recorded)
+    return seen
+
+
+# a batch's plane as the walk should get it: [rows, P], P = 2L / 4 bytes
+LANE_MAJOR = {(13, 512), (1, 512), (5, 1024)}
+
+
+@pytest.mark.parametrize("workers", [1, 3, 7, 32])
+def test_collect_tasks_on_a_pool_matches_serial(monkeypatch, rebuild_case,
+                                                workers):
+    """The rebuild cut into min(workers, rows) slices a batch on a pool
+    (32: more threads than rows, a slice a task, under a short switch
+    interval) gives the no-pool result, element for element, and
+    falcon_tpu's; every plane reaches the walk lane-major and contiguous,
+    as the copy back made it (no host transpose)."""
+    import sys
+    tasks, dev, inflight, serial, ref, planes = rebuild_case
+    assert tdev.native.available()
+    assert sorted(planes) == sorted((sh, True) for sh in LANE_MAJOR)
+    assert serial == ref
+    seen = _record_planes(monkeypatch)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with dev.msa_pool(workers):
+            got = dev.collect_tasks(tasks, inflight)
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(seen) == sum(min(workers, len(c)) for c, _ in inflight)
+    assert {sh for sh, _ in seen} == LANE_MAJOR and all(c for _, c in seen)
+    assert got == serial == ref
+
+
+def test_walk_lanes_matches_moves_to_alns():
+    """walk_lanes on a lane-major plane and the batch's host pack equals
+    the copied binding's moves_to_alns on the same plane [P, B] and the
+    tasks' own codes, slice by slice (random move codes, whole inactive
+    bytes among them; codes 0-4 of uneven lengths); a slice past the
+    batch is refused."""
+    from falcon_tpu_torch.ops.align_device import pack_tasks
+    rng = np.random.RandomState(9)
+    B, P = 12, 300
+    plane = rng.randint(0, 256, (B, P)).astype(np.uint8)
+    plane[:, :40] = 0xFF
+    tasks = [(rng.randint(0, 5, 4 * P + k).astype(np.uint8),
+              rng.randint(0, 5, 4 * P + 3 * k).astype(np.uint8))
+             for k in range(B)]
+    host = pack_tasks(tasks, list(range(B)), B, 2048)
+    for lo, hi in [(0, 3), (3, 12), (5, 6), (0, 12), (11, 12)]:
+        want = tdev.native.moves_to_alns(
+            plane.T, np.arange(lo, hi, dtype=np.int32),
+            [q for q, _ in tasks[lo:hi]], [t for _, t in tasks[lo:hi]])
+        assert tdev.walk_lanes(plane, host, lo, hi) == want
+    with pytest.raises(ValueError):
+        tdev.walk_lanes(plane, host, 5, 13)

@@ -2,9 +2,9 @@
 nothing is recorded while no profiler window is open and no recording()
 block runs; inside one, every span of the port's hot path appears, nested
 per thread, consensus chunks keyed across the main and finisher threads;
-the host MSA's fan-out is one span a chunk; the copy helpers count what
-they copy; FTPU_PROFILE's trace.json carries the spans on the trace's own
-base."""
+the host MSA's fan-out and its rebuild of the alignments are one span a
+chunk each; the copy helpers count what they copy; FTPU_PROFILE's
+trace.json carries the spans on the trace's own base."""
 import io
 import json
 import os
@@ -231,6 +231,35 @@ def test_host_msa_records_one_msa_span_a_chunk():
         assert m.counts["groups"] == f.counts["groups"] == 2
         assert m.counts["workers"] == 3
         assert 0 < m.counts["busy_us"] <= 3 * (m.t1 - m.t0) / 1e3
+
+
+@pytest.mark.parametrize("n_core", [3, 0])
+def test_host_msa_records_one_rebuild_span_a_chunk(n_core):
+    """The host-MSA path records one cns.rebuild span a chunk, inside the
+    chunk's cns.collect and cns.finish on the finisher thread, with its
+    batches, its slices (min(workers, rows) a batch: here one batch of 10
+    rows a chunk), the pool's threads (1 without a pool: n_core 0) and
+    the slices' busy time, at most workers x the span's own."""
+    cfg = ConsensusConfig(min_cov=2, min_idt=0.70, min_n_read=2,
+                          min_cov_aln=2, n_core=n_core)
+    dev = tdev.DeviceCns(device="cpu", use_dp=False, chunk_tasks=10)
+    with trace.recording() as got:
+        n = tdev.run_consensus_device(iter(_groups()), cfg, io.StringIO(),
+                                      dev=dev)
+    by_id = {s.id: s for s in got}
+    rebuild = [s for s in got if s.name == "cns.rebuild"]
+    workers = max(n_core, 1)
+    assert n == 4 and len(rebuild) == 2
+    assert len({by_id[by_id[r.parent].parent].id for r in rebuild}) == 2
+    for r in rebuild:
+        collect = by_id[r.parent]
+        finish = by_id[collect.parent]
+        assert (collect.name, finish.name) == ("cns.collect", "cns.finish")
+        assert r.tid == finish.tid
+        assert r.counts["batches"] == 1
+        assert r.counts["workers"] == workers
+        assert r.counts["slices"] == min(workers, 10)
+        assert 0 < r.counts["busy_us"] <= workers * (r.t1 - r.t0) / 1e3
 
 
 def test_copy_counts_match_the_arrays(dp_consensus):

@@ -19,7 +19,8 @@ DeviceCns replaces falcon_tpu's DeviceCns; run_consensus_device replaces
 its namesake.  The host halves are copies of falcon_tpu/cns/device.py's:
 the group gates (gate_group_ranged, _clamp_range, _range_ok), the code
 conversions, and the methods dispatch_chunk, _msa and _host_range.
-finish_chunk runs falcon_tpu's host MSA on msa_workers() threads, one pool
+DeviceCns.chunk_path picks the path once.  finish_chunk runs falcon_tpu's
+host MSA on the msa_pool() its state carries, of msa_workers() threads, one pool
 a run_consensus_device call, where falcon_tpu runs two a chunk; before it,
 collect_tasks rebuilds the chunk's alignments on the same pool, from move
 planes the device lays out lane-major, where falcon_tpu rebuilds them on
@@ -39,7 +40,7 @@ from ..ops import cns_dp
 from ..ops import cns_dp_cuda as dpk
 from ..ops import consensus_dp
 from ..ops import native
-from ..ops.align_device import DeviceExtender, gather_pad2, pack_tasks
+from ..ops.align_device import LADDER, gather_pad2, pack_tasks
 from ..ops.align_tb import moves_to_alignment, unpack_moves
 from ..ops.align_tb_cuda import (align_tb_batch_cuda, kernel_for,
                                  trace_row_bytes)
@@ -151,6 +152,21 @@ def msa_workers(cfg, nproc=None):
     return max(2, cores // procs - 1)
 
 
+MsaPool = collections.namedtuple("MsaPool", "executor workers")
+
+
+@contextlib.contextmanager
+def msa_pool(workers):
+    """The pool that collect_tasks and finish_chunk take: None for 0
+    workers, meaning that they run on the calling thread, else an MsaPool
+    of `workers` threads, shut down when the block ends."""
+    if not workers:
+        yield None
+        return
+    with ThreadPoolExecutor(workers) as executor:
+        yield MsaPool(executor, workers)
+
+
 def _range_ok(rng):
     """generate_consensus range gates (falcon.c:605-612)."""
     s1, e1, s2, e2 = rng
@@ -161,38 +177,17 @@ def _range_ok(rng):
 
 
 def walk_lanes(plane, host, lo, hi):
-    """The native walk of native.moves_to_alns over lanes lo..hi of one
-    batch: plane its packed moves laid out lane-major, [B, P]; host its
-    pack_tasks arrays (the tasks' codes where the upload packed them, in
-    lane order: codes, q offsets, q lengths, t offsets, t lengths).  A
+    """The native walk (native.moves_to_alns_lanes) over lanes lo..hi of
+    one batch: plane its packed moves laid out lane-major, [B, P]; host
+    its pack_tasks arrays (the tasks' codes where the upload packed them,
+    in lane order: codes, q offsets, q lengths, t offsets, t lengths).  A
     slice costs a few numpy calls and one release of the GIL whatever its
     rows; moves_to_alns concatenates the tasks' codes anew, a copy a
     task, and with that on each of 7 threads one chunk's collect_tasks
     took 0.45-0.92 s against 0.11-0.28 s without (8192 tasks of 6-14 kb;
     the 8-core host of an NVIDIA H100 80GB HBM3).  Returns [(n_cols,
     q_aln bytes, t_aln bytes)] a lane, as moves_to_alns."""
-    cat, q_offs, q_lens, t_offs, t_lens = host
-    if not (0 <= lo < hi <= min(plane.shape[0], len(q_offs))):
-        raise ValueError("lanes %d..%d of a batch of %d" % (
-            lo, hi, plane.shape[0]))
-    plane = np.ascontiguousarray(plane, dtype=np.uint8)
-    n = hi - lo
-    out_offs = np.zeros(n + 1, np.int64)
-    np.cumsum(q_lens[lo:hi].astype(np.int64) + t_lens[lo:hi],
-              out=out_offs[1:])
-    qa = np.empty(int(out_offs[-1]), np.uint8)
-    ta = np.empty(int(out_offs[-1]), np.uint8)
-    q_offs = q_offs[lo:hi].astype(np.int64)
-    t_offs = t_offs[lo:hi].astype(np.int64)
-    lanes = np.arange(lo, hi, dtype=np.int32)
-    ncols = np.zeros(n, np.int32)
-    native.get_lib().ftpu_moves_to_alns_c(
-        plane.ctypes.data, plane.shape[1], n, lanes.ctypes.data,
-        cat.ctypes.data, q_offs.ctypes.data, cat.ctypes.data,
-        t_offs.ctypes.data, qa.ctypes.data, ta.ctypes.data,
-        out_offs.ctypes.data, ncols.ctypes.data)
-    return [(c, qa[o:o + c].tobytes(), ta[o:o + c].tobytes())
-            for c, o in zip(ncols.tolist(), out_offs.tolist())]
+    return native.moves_to_alns_lanes(plane, lo, hi, *host)
 
 
 class DeviceCns:
@@ -249,20 +244,24 @@ class DeviceCns:
             os.environ.get("FTPU_CNS_CHUNK_TASKS") or
             (32768 if use_dp else 8192))
         self.dp_batches = collections.Counter()    # T -> DP batches run
-        self._msa_pool, self._msa_threads = None, 1  # set by msa_pool()
 
     @contextlib.contextmanager
-    def msa_pool(self, workers):
-        """Inside the block finish_chunk runs its groups' MSA on `workers`
-        threads; with workers 0, as outside any such block, on the thread
-        that calls it."""
-        with (ThreadPoolExecutor(workers) if workers else
-              contextlib.nullcontext()) as pool:
-            self._msa_pool, self._msa_threads = pool, max(workers, 1)
-            try:
-                yield
-            finally:
-                self._msa_pool, self._msa_threads = None, 1
+    def chunk_path(self, cfg, nproc=None):
+        """The consensus path of this object, chosen once: inside the block,
+        (dispatch(chunk, cfg) -> state, finish(state) -> [(seed_id,
+        consensus_str)] in chunk order).  The device-DP path's halves take
+        no pool; on the host-MSA path dispatch appends to dispatch_chunk's
+        state one msa_pool() of msa_workers(cfg, nproc) threads, open for
+        the block, which finish_chunk runs on."""
+        if self.use_dp:
+            yield self.dispatch_chunk_dp, self.finish_chunk_dp
+            return
+        workers = msa_workers(cfg, nproc)
+        LOG.info("cns.device: host MSA on %d threads", max(workers, 1))
+        dispatch = self.dispatch_chunk
+        with msa_pool(workers) as pool:
+            yield (lambda chunk, cfg: dispatch(chunk, cfg) + (pool,),
+                   self.finish_chunk)
 
     def _trace_row_bytes(self, L):
         """Bytes of trace one batch row of padded length L holds between
@@ -290,7 +289,7 @@ class DeviceCns:
         buckets = {}
         for idx, (qc, tc) in enumerate(tasks):
             m = max(len(qc), len(tc), 1)
-            L = next(r for r in DeviceExtender.LADDER if m <= r)
+            L = next(r for r in LADDER if m <= r)
             buckets.setdefault(L, []).append(idx)
         for L in sorted(buckets):
             idxs = sorted(buckets[L],
@@ -326,18 +325,20 @@ class DeviceCns:
                  len(tasks), len(inflight), sp.seconds)
         return inflight
 
-    def collect_tasks(self, tasks, inflight):
+    def collect_tasks(self, tasks, inflight, pool=None):
         """Copy dispatched batches back and rebuild the alignments.
-        Inside msa_pool() each batch's lanes are cut into min(workers,
-        rows) contiguous slices walked on the pool's threads (the native
-        walk releases the GIL) while this thread copies the next batch
-        back; with no pool, or on the plain twin, this thread rebuilds a
-        batch at a time.  Returns per-task (dist, n_cols, q_aln, t_aln) in
-        task order (ASCII bytes; n_cols == 0 when no alignment)."""
+        On a pool (msa_pool()) each batch's lanes are cut into
+        min(workers, rows) contiguous slices walked on the pool's threads
+        (the native walk releases the GIL) while this thread copies the
+        next batch back; with no pool, or on the plain twin, this thread
+        rebuilds a batch at a time.  Returns per-task (dist, n_cols, q_aln,
+        t_aln) in task order (ASCII bytes; n_cols == 0 when no
+        alignment)."""
         results = [None] * len(tasks)
         use_native = native.available()
-        pool = self._msa_pool if use_native else None
-        workers = self._msa_threads if pool is not None else 1
+        if not use_native:
+            pool = None
+        workers = pool.workers if pool is not None else 1
 
         def rebuild(chunk, bd, plane, host, lo, hi):
             # lanes lo..hi of one batch; returns the ns it took
@@ -374,7 +375,8 @@ class DeviceCns:
                         if pool is None:
                             busy.append(rebuild(*got, lo, hi))
                         else:
-                            futs.append(pool.submit(run, *got, lo, hi))
+                            futs.append(pool.executor.submit(run, *got,
+                                                             lo, hi))
                     if b + 1 < len(inflight):
                         got = fetch(b + 1)
                 busy += [f.result() for f in futs]
@@ -420,14 +422,16 @@ class DeviceCns:
         return (chunk, cfg, tasks, task_of, group_alns, inflight)
 
     def finish_chunk(self, state):
-        """Collect one dispatched chunk and run the host MSA/DP on
-        msa_pool()'s threads, the groups longest first (seed length times
-        alignments), so that no worker is left alone with a long group at
-        the chunk's end.  Returns [(seed_id, consensus_str)] in chunk
-        order."""
-        chunk, cfg, tasks, task_of, group_alns, inflight = state
+        """Collect one dispatched chunk and run the host MSA/DP on the
+        threads of the msa_pool() value appended to dispatch_chunk's state
+        (chunk_path; none appended, or None: on this thread), the groups
+        longest first (seed length times alignments), so that no worker is
+        left alone with a long group at the chunk's end.  Returns
+        [(seed_id, consensus_str)] in chunk order."""
+        chunk, cfg, tasks, task_of, group_alns, inflight = state[:6]
+        pool = state[6] if len(state) > 6 else None
         max_diff = 1.0 - cfg.min_idt
-        res = self.collect_tasks(tasks, inflight)
+        res = self.collect_tasks(tasks, inflight, pool)
         for (gi, si, s1, s2), r in zip(task_of, res):
             dist, ncols, qa, ta = r
             if ncols > 500 and (float(dist) / float(ncols)) < max_diff:
@@ -444,30 +448,27 @@ class DeviceCns:
             cns = self._msa(len(seed_seq), alns, cfg.min_cov)
             return (seed_id, cns), time.perf_counter_ns() - t0
 
-        pool = self._msa_pool
+        workers = pool.workers if pool is not None else 1
         with trace.span("cns.msa", key=trace.open_key(), clock=True,
-                        groups=len(chunk),
-                        workers=self._msa_threads) as sp:
+                        groups=len(chunk), workers=workers) as sp:
             if pool is None:
                 done = [one(gi) for gi in range(len(chunk))]
             else:
                 run = trace.carry(one)
                 order = sorted(range(len(chunk)), key=lambda gi: -len(
                     chunk[gi][1]) * len(group_alns[gi]))
-                futs = {gi: pool.submit(run, gi) for gi in order}
+                futs = {gi: pool.executor.submit(run, gi) for gi in order}
                 done = [futs[gi].result() for gi in range(len(chunk))]
             sp.add(busy_us=sum(ns for _, ns in done) // 1000)
         LOG.info("cns.device: chunk of %d groups: msa %.1fs on %d threads",
-                 len(chunk), sp.seconds, self._msa_threads)
+                 len(chunk), sp.seconds, workers)
         return [out for out, _ in done]
 
     def consensus_chunk(self, chunk, cfg):
         """chunk: [(seed_id, seed_seq, sups)] from gate_group_ranged.
         Returns [(seed_id, consensus_str)]."""
-        if self.use_dp:
-            return self.finish_chunk_dp(self.dispatch_chunk_dp(chunk, cfg))
-        with self.msa_pool(msa_workers(cfg)):
-            return self.finish_chunk(self.dispatch_chunk(chunk, cfg))
+        with self.chunk_path(cfg) as (dispatch, finish):
+            return finish(dispatch(chunk, cfg))
 
     # -- device-DP path: tags, scan and walk on the device ----------------
     def _dp_group_cap(self, T):
@@ -626,14 +627,6 @@ def run_consensus_device(groups, cfg, out, dev=None, progress_cb=None,
     order), as in falcon_tpu.  nproc: the job's cns nproc, which sizes the
     host-MSA path's pool where cfg has no --n-core (msa_workers)."""
     dev = dev or DeviceCns()
-    if dev.use_dp:
-        dispatch_chunk, finish_chunk = dev.dispatch_chunk_dp, \
-            dev.finish_chunk_dp
-        workers = 0
-    else:
-        dispatch_chunk, finish_chunk = dev.dispatch_chunk, dev.finish_chunk
-        workers = msa_workers(cfg, nproc)
-        LOG.info("cns.device: host MSA on %d threads", max(workers, 1))
     emitted = 0
     chunk = []
     n_tasks = 0
@@ -659,7 +652,7 @@ def run_consensus_device(groups, cfg, out, dev=None, progress_cb=None,
     # depth-2 software pipeline: the main thread gates groups and queues
     # device batches; the finisher copies back, rebuilds and fans the MSA
     # out over the pool (the C++ calls release the GIL)
-    with dev.msa_pool(workers), \
+    with dev.chunk_path(cfg, nproc) as (dispatch_chunk, finish_chunk), \
             trace.span("cns.run", clock=True) as run_sp, \
             ThreadPoolExecutor(1) as finisher:
 

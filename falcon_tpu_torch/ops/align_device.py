@@ -33,6 +33,9 @@ LOG = logging.getLogger(__name__)
 INF = 1 << 20
 NEG = -(1 << 30)
 
+# Padded task lengths: powers of two from 1024 (falcon_tpu LADDER).
+LADDER = tuple(1 << s for s in range(10, 19))   # 1024 .. 262144
+
 
 def band_off(s, W):
     """Window offset of anti-diagonal s: lane l holds cell i = o(s) + l."""
@@ -250,24 +253,19 @@ def pack_tasks(tasks, idxs, B, L):
 class DeviceExtender:
     """Length-bucketed batching front end for the extension kernel.
 
-    run() takes (q_codes, t_codes) tasks; run_specs() takes tasks as
-    (offset, len, dir) slices of one flat code array that goes to the
-    device once, 2-bit packed.  Both return an [n, 3] int64 array of
-    per-task (i, j, d).  Every batch runs through K1 (ops.align_cuda);
-    on a CPU device the wrapper runs its plain twin.
+    run_specs() takes tasks as (offset, len, dir) slices of one flat code
+    array that goes to the device once, 2-bit packed, and returns an
+    [n, 3] int64 array of per-task (i, j, d).  Every batch runs through K1
+    (ops.align_cuda); on a CPU device the wrapper runs its plain twin.
 
     Every batch is cut over the extender's mesh (parallel.mesh), as
     falcon_tpu shards it when it sees several devices (align_device.py:
-    348-359, 417-443, 469-481, 516-536): run() packs each shard's tasks on
-    the host and pads them on the shard's device (sharded_tasks_extend),
-    run_specs() copies the packed codes to each device of the mesh once a
-    call (replicate) and runs sharded_specs_extend.  The mesh is `devices`
-    when given, else parallel.mesh.extender_mesh(device): every visible
-    GPU when CUDA was asked for without an index, else the one device.  A
-    mesh of one entry is one gather and one K1 launch a batch."""
-
-    # Padded task lengths: powers of two from 1024 (falcon_tpu LADDER).
-    LADDER = tuple(1 << s for s in range(10, 19))   # 1024 .. 262144
+    348-359, 417-443, 469-481, 516-536): run_specs() copies the packed
+    codes to each device of the mesh once a call (replicate) and runs
+    sharded_specs_extend.  The mesh is `devices` when given, else
+    parallel.mesh.extender_mesh(device): every visible GPU when CUDA was
+    asked for without an index, else the one device.  A mesh of one entry
+    is one gather and one K1 launch a batch."""
 
     def __init__(self, W=512, end_bonus=3, max_batch=128, device=None,
                  devices=None):
@@ -296,45 +294,6 @@ class DeviceExtender:
                 chunk, out = inflight.pop(0)
                 results[chunk] = trace.to_host(out).T[:len(chunk)]
         return sp.seconds
-
-    def run(self, tasks):
-        """tasks: list of (q_codes uint8, t_codes uint8)."""
-        from ..parallel.mesh import sharded_tasks_extend
-        results = np.zeros((len(tasks), 3), np.int64)
-        if not tasks:
-            return results
-        # the band keeps |i - j| < W/2 + 1 and the sweep ends at the first
-        # exhausted side, so the longer side can be cut to min + W/2 + 8
-        # without changing a result; this sets the bucket
-        cap_slack = self.W // 2 + 8
-        tasks = [(qc[:min(len(qc), len(tc)) + cap_slack],
-                  tc[:min(len(qc), len(tc)) + cap_slack])
-                 for qc, tc in tasks]
-        ladder_of = self._bucket_ladder(
-            np.asarray([max(len(qc), len(tc), 1) for qc, tc in tasks]))
-        inflight = []
-        t_wait = 0.0
-        n_batches = 0
-        with trace.span("extender.run", clock=True, tasks=len(tasks)) as sp:
-            for L in np.unique(ladder_of):
-                L = int(L)
-                idxs = sorted(np.nonzero(ladder_of == L)[0].tolist(),
-                              key=lambda i: len(tasks[i][0]) +
-                              len(tasks[i][1]))
-                B = self._batch_for(L)
-                for ofs in range(0, len(idxs), B):
-                    chunk = idxs[ofs:ofs + B]
-                    inflight.append((chunk, sharded_tasks_extend(
-                        self.mesh, tasks, chunk, L, self.W,
-                        self.end_bonus)))
-                    n_batches += 1
-                    heartbeat_tick()
-                    t_wait += self._drain(inflight, results,
-                                          self.inflight_cap)
-            t_wait += self._drain(inflight, results, 0)
-        LOG.info("extender: %d tasks, %d batches; dispatch %.1fs wait "
-                 "%.1fs", len(tasks), n_batches, sp.seconds - t_wait, t_wait)
-        return results
 
     def run_specs(self, flat, q_off, q_len, q_dir, t_off, t_len, t_dir):
         """Every task row is an (offset, len, dir) slice of `flat` (uint8
@@ -401,8 +360,8 @@ class DeviceExtender:
 
     def _bucket_ladder(self, m):
         """Per-task padded length: smallest ladder rung >= max side."""
-        Ls = np.full(len(m), self.LADDER[-1], np.int64)
-        for rung in reversed(self.LADDER):
+        Ls = np.full(len(m), LADDER[-1], np.int64)
+        for rung in reversed(LADDER):
             Ls = np.where(m <= rung, rung, Ls)
         return Ls
 

@@ -291,6 +291,36 @@ def moves_to_alns(packed, lanes, q_list, t_list):
     return out
 
 
+def moves_to_alns_lanes(plane, lo, hi, cat, q_offs, q_lens, t_offs, t_lens):
+    """moves_to_alns over lanes lo..hi of one batch whose tasks' codes one
+    buffer holds, read where they lie: plane the batch's packed moves laid
+    out lane-major, [B, P]; cat the codes and, a lane, the offsets and
+    lengths of its q and t in cat (ops.align_device.pack_tasks's arrays).
+    Returns [(n_cols, q_aln bytes, t_aln bytes)] a lane."""
+    import numpy as np
+    if not (0 <= lo < hi <= min(plane.shape[0], len(q_offs))):
+        raise ValueError("lanes %d..%d of a batch of %d" % (
+            lo, hi, plane.shape[0]))
+    plane = np.ascontiguousarray(plane, dtype=np.uint8)
+    n = hi - lo
+    out_offs = np.zeros(n + 1, np.int64)
+    np.cumsum(q_lens[lo:hi].astype(np.int64) + t_lens[lo:hi],
+              out=out_offs[1:])
+    qa = np.empty(int(out_offs[-1]), np.uint8)
+    ta = np.empty(int(out_offs[-1]), np.uint8)
+    q_offs = q_offs[lo:hi].astype(np.int64)
+    t_offs = t_offs[lo:hi].astype(np.int64)
+    lanes = np.arange(lo, hi, dtype=np.int32)
+    ncols = np.zeros(n, np.int32)
+    get_lib().ftpu_moves_to_alns_c(
+        plane.ctypes.data, plane.shape[1], n, lanes.ctypes.data,
+        cat.ctypes.data, q_offs.ctypes.data, cat.ctypes.data,
+        t_offs.ctypes.data, qa.ctypes.data, ta.ctypes.data,
+        out_offs.ctypes.data, ncols.ctypes.data)
+    return [(c, qa[o:o + c].tobytes(), ta[o:o + c].tobytes())
+            for c, o in zip(ncols.tolist(), out_offs.tolist())]
+
+
 def seed_chain(q_codes, q_offsets, t_codes, t_offsets, K, stride,
                max_freq, bin_size, min_hits, filter_mode, rids_a, rids_b,
                topk=3):

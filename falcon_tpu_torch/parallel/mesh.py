@@ -4,10 +4,12 @@ falcon_tpu/parallel/mesh.py).
 falcon_tpu shards extension batches over a 1-D "pair" mesh with
 jax.shard_map: every device runs the banded extension kernel on its shard
 and the host gathers the (i, j, d) results.  Here the mesh is a tuple of
-torch.devices and the shard_map is written out: a batch's rows are cut
-into contiguous shards, one per mesh entry, every shard is queued on its
-own device's current stream before any is waited on, and the results are
-concatenated in shard order on the mesh's first device.
+torch.devices and the shard_map is written out, once, in
+sharded_specs_extend, the entry of ops.align_device.DeviceExtender's
+run_specs: a batch's rows are cut into contiguous shards, one per mesh
+entry, every shard is queued on its own device's current stream before any
+is waited on, and the results are concatenated in shard order on the
+mesh's first device.
 
 K1 (ops.align_cuda) has no row tile, so a batch needs no padding to a
 multiple of (256 x devices) as the Pallas kernel's did
@@ -43,7 +45,7 @@ import torch
 
 from ..ops import cns_dp
 from ..ops.align_cuda import extend_batch_cuda
-from ..ops.align_device import gather_pad2, gather_specs2_packed, pack_tasks
+from ..ops.align_device import gather_specs2_packed
 from ..ops.align_tb_cuda import align_tb_batch_cuda
 from ..ops.cns_dp_cuda import (accumulate_tags_planes_cuda,
                                backtrack_walk_cuda, consensus_scan_cuda)
@@ -160,28 +162,6 @@ def sharded_specs_extend(mesh, words, sel, L, W, end_bonus):
     return _gather(parts, mesh, B)
 
 
-def sharded_tasks_extend(mesh, tasks, chunk, L, W, end_bonus):
-    """Run one batch of (q_codes, t_codes) tasks over the mesh (falcon_tpu's
-    DeviceExtender.run over its mesh).  The rows `chunk` (indices into
-    tasks) are cut into contiguous shards; each shard's codes are packed on
-    the host into one flat buffer (ops.align_device.pack_tasks), copied to
-    its device, padded there to [b, L] planes (gather_pad2) and run through
-    K1.  Every shard is queued before any is waited on.  Returns
-    [3, len(chunk)] int32 (i, j, d) on mesh[0], not waited on."""
-    B = len(chunk)
-    parts = []
-    for (lo, hi), dev in zip(shard_bounds(B, len(mesh)), mesh):
-        if hi == lo:
-            continue
-        cat, qo, ql, to, tl = pack_tasks(tasks, chunk[lo:hi], hi - lo, L)
-        cat = _on(cat, dev, torch.int8)
-        qo, ql, to, tl = (_on(x, dev, torch.int32) for x in (qo, ql, to, tl))
-        q, t = gather_pad2(cat, qo, ql, to, tl, L, 4, 5)
-        parts.append(extend_batch_cuda(q, ql, t, tl, W=W,
-                                       end_bonus=end_bonus))
-    return _gather(parts, mesh, B)
-
-
 def sum_over_mesh(parts, mesh):
     """falcon_tpu's psum: the partial tensors of the shards (each on any
     device of the mesh, all of one shape and dtype) added into a new
@@ -292,37 +272,3 @@ def sharded_cns_scan(mesh, msa, G, T, D, min_cov):
         scans.append(scan)
     return (torch.cat([r.to(mesh[0]) for r in rows]),
             torch.cat([c.to(mesh[0]) for c in counts]), scans)
-
-
-class ShardedExtender:
-    """Data-parallel front end over K1 (falcon_tpu's ShardedExtender) for
-    host-padded batches: one contiguous shard of rows per mesh entry, no
-    padding of B."""
-
-    def __init__(self, mesh=None, W=512, end_bonus=3):
-        self.mesh = mesh or make_mesh()
-        self.W = W
-        self.end_bonus = end_bonus
-        self.n_dev = len(self.mesh)
-
-    def launch(self, q, qlen, t, tlen):
-        """q/t: [B, L] codes (q padded with 4, t with 5), qlen/tlen: [B];
-        numpy arrays or tensors on any device.  Queues every shard and
-        returns [3, B] int32 (i, j, d) on mesh[0], not waited on."""
-        B = q.shape[0]
-        parts = []
-        for (lo, hi), dev in zip(shard_bounds(B, self.n_dev), self.mesh):
-            if hi == lo:
-                continue
-            parts.append(extend_batch_cuda(
-                _on(q[lo:hi], dev, torch.int8),
-                _on(qlen[lo:hi], dev, torch.int32),
-                _on(t[lo:hi], dev, torch.int8),
-                _on(tlen[lo:hi], dev, torch.int32),
-                W=self.W, end_bonus=self.end_bonus))
-        return _gather(parts, self.mesh, B)
-
-    def extend(self, q, qlen, t, tlen):
-        """As launch, waited on: numpy arrays (i, j, d) of length B."""
-        out = trace.to_host(self.launch(q, qlen, t, tlen))
-        return out[0], out[1], out[2]

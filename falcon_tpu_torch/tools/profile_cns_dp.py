@@ -51,7 +51,7 @@ from ..cns.device import (DeviceCns, _clamp_range, _range_ok,
                           gate_group_ranged, seq_to_codes)
 from ..ops import cns_dp
 from ..ops import cns_dp_cuda as dpk
-from ..ops.align_device import DeviceExtender, gather_pad2, pack_tasks
+from ..ops.align_device import LADDER, gather_pad2, pack_tasks
 from ..utils import sim
 from .common import (Stages, add_device_arg, device_of, launch_counts,
                      launches_since, sync)
@@ -170,7 +170,7 @@ def staged_batch(dev, st, chunk, sub, G, T, cfg, out):
         buckets = {}
         for idx, (qc, tc) in enumerate(tasks):
             m = max(len(qc), len(tc), 1)
-            L = next(r for r in DeviceExtender.LADDER if m <= r)
+            L = next(r for r in LADDER if m <= r)
             buckets.setdefault(L, []).append(idx)
     for L in sorted(buckets):
         with st("hostprep"):

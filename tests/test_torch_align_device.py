@@ -286,19 +286,6 @@ def test_device_extender_run_specs_matches_jax(monkeypatch, cap):
         assert ext.inflight_cap == 1
 
 
-def test_device_extender_run_matches_jax():
-    flat, specs = _spec_tasks(8, n=10)
-    tasks = []
-    for qo, ql, qd, to_, tl, td in zip(*specs):
-        qs = flat[qo:qo + ql] if qd == 1 else flat[qo - ql + 1:qo + 1][::-1]
-        ts = flat[to_:to_ + tl] if td == 1 else \
-            flat[to_ - tl + 1:to_ + 1][::-1]
-        tasks.append((np.ascontiguousarray(qs), np.ascontiguousarray(ts)))
-    ref = jad.DeviceExtender(W=64, use_pallas=False).run(tasks)
-    got = tad.DeviceExtender(W=64, device="cpu").run(tasks)
-    np.testing.assert_array_equal(got, np.asarray(ref, np.int64))
-
-
 def test_wrapper_rejects_bad_inputs():
     q = torch.zeros((2, 64), dtype=torch.int8)
     n = torch.zeros(2, dtype=torch.int32)

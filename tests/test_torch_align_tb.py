@@ -12,8 +12,7 @@ from falcon_tpu.ops import align_tb as jtb
 from falcon_tpu.ops.align_tb_pallas import align_tb_batch_pallas
 from falcon_tpu_torch.cns import device as tdev
 from falcon_tpu_torch.ops import align_tb as ttb
-from falcon_tpu_torch.ops.align_device import (DeviceExtender, band_off,
-                                               band_sweep)
+from falcon_tpu_torch.ops.align_device import LADDER, band_off, band_sweep
 from falcon_tpu_torch.ops import align_tb_cuda
 from falcon_tpu_torch.ops.align_tb_cuda import (align_tb_batch_cuda,
                                                 kernel_for, trace_cells,
@@ -263,7 +262,7 @@ def test_batch_for_fits_the_trace_budget(kind, monkeypatch):
     cns = tdev.DeviceCns(use_dp=False)
     assert cns.device.type == kind
     rows = {}
-    for L in DeviceExtender.LADDER:
+    for L in LADDER:
         B = rows[L] = cns._batch_for(L)
         per_row = trace_row_bytes(L, cns.W) if kind == "cuda" \
             else 2 * L * cns.W
@@ -301,7 +300,7 @@ def test_device_cns_takes_every_band_the_kernels_take(W, monkeypatch):
     cns = tdev.DeviceCns(use_dp=False)
     assert cns.W == W
     # the launch at the largest ladder length stays inside the trace budget
-    L = DeviceExtender.LADDER[-1]
+    L = LADDER[-1]
     assert cns._batch_for(L) * trace_row_bytes(L, W) <= cns.moves_budget
     monkeypatch.setattr(tdev, "resolve_device",
                         lambda d=None: torch.device("cpu"))

@@ -1,8 +1,8 @@
 """The port's run_consensus_device against falcon_tpu's host-MSA device
 path (DeviceCns(use_dp=False), XLA alignment on the CPU): byte-equal
 preads, on the inputs of tests/test_cns_device.py plus a few more
-groups, at every size of the port's MSA pool; and the pool's sizing
-rule."""
+groups, at every size of the port's MSA pool, the pool handed in as an
+argument; and the pool's sizing rule."""
 import io
 
 import numpy as np
@@ -11,6 +11,7 @@ import pytest
 from falcon_tpu.cns import device as jdev
 from falcon_tpu.cns import runner
 from falcon_tpu_torch.cns import device as tdev
+from falcon_tpu_torch.cns.device import msa_pool
 
 from tests.test_cns_device import A, noisy
 
@@ -81,6 +82,53 @@ def test_run_consensus_device_matches_jax(jax_preads, n_core):
     assert n_got == n_ref
     assert got_out.getvalue() == ref_out
     assert got_marks == ref_marks
+
+
+def test_the_pool_is_an_argument(jax_preads, monkeypatch):
+    """finish_chunk on the calling thread (no pool: msa_pool(0) gives None)
+    and on a pool of 3 appended to its state gives falcon_tpu's consensus
+    of one chunk, also when consensus_chunk calls it with the state alone
+    (as the benchmark's hooks replace it); and a
+    run_consensus_device call on a pool of 3 changes no attribute of its
+    DeviceCns but dp_batches, neither while it runs (read at every
+    progress mark, on the finisher, the pool open) nor after."""
+    cfg = _cfg()
+    chunk = [(sid, *g) for sid, items in _groups()
+             if (g := tdev.gate_group_ranged(sid, items, cfg)) is not None]
+    ref = jdev.DeviceCns(use_dp=False, use_pallas=False).consensus_chunk(
+        chunk, cfg)
+    assert len(ref) == 3 and all(cns for _, cns in ref)
+    dev = tdev.DeviceCns(device="cpu")
+    with msa_pool(0) as pool:
+        assert pool is None
+    assert dev.finish_chunk(dev.dispatch_chunk(chunk, cfg)) == ref
+    with msa_pool(3) as pool:
+        assert pool.workers == 3
+        assert dev.finish_chunk(dev.dispatch_chunk(chunk, cfg) + (pool,)) \
+            == ref
+    # the host-MSA path calls finish_chunk(state) with the state alone, as
+    # a hook that replaces it by name may take it
+    calls = []
+    orig = tdev.DeviceCns.finish_chunk
+
+    def finish(self, state):
+        calls.append(state[-1].workers)
+        return orig(self, state)
+
+    monkeypatch.setattr(tdev.DeviceCns, "finish_chunk", finish)
+    assert dev.consensus_chunk(chunk, _cfg(3)) == ref and calls == [3]
+    monkeypatch.undo()
+
+    def state():
+        return {k: v for k, v in vars(dev).items() if k != "dp_batches"}
+
+    dev = tdev.DeviceCns(device="cpu", chunk_tasks=CHUNK_TASKS)
+    before, seen, out = state(), [], io.StringIO()
+    tdev.run_consensus_device(iter(_groups(12)), _cfg(3), out, dev=dev,
+                              progress_cb=lambda k: seen.append(state()))
+    assert out.getvalue() == jax_preads[1]
+    assert len(seen) == len(jax_preads[2]) > 1
+    assert all(s == before for s in seen) and state() == before
 
 
 @pytest.mark.parametrize("n_core, nproc, cores, procs, want", [
@@ -174,8 +222,8 @@ def test_collect_tasks_on_a_pool_matches_serial(monkeypatch, rebuild_case,
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        with dev.msa_pool(workers):
-            got = dev.collect_tasks(tasks, inflight)
+        with msa_pool(workers) as pool:
+            got = dev.collect_tasks(tasks, inflight, pool)
     finally:
         sys.setswitchinterval(interval)
     assert len(seen) == sum(min(workers, len(c)) for c, _ in inflight)

@@ -179,15 +179,18 @@ def _range_ok(rng):
 def walk_lanes(plane, host, lo, hi):
     """The native walk (native.moves_to_alns_lanes) over lanes lo..hi of
     one batch: plane its packed moves laid out lane-major, [B, P]; host
-    its pack_tasks arrays (the tasks' codes where the upload packed them,
-    in lane order: codes, q offsets, q lengths, t offsets, t lengths).  A
+    its pack_tasks tensors (the tasks' codes where the upload packed them,
+    and the [4, B] block of q offsets, q lengths, t offsets and t lengths,
+    in lane order), kept referenced while the walk reads them.  A
     slice costs a few numpy calls and one release of the GIL whatever its
     rows; moves_to_alns concatenates the tasks' codes anew, a copy a
     task, and with that on each of 7 threads one chunk's collect_tasks
     took 0.45-0.92 s against 0.11-0.28 s without (8192 tasks of 6-14 kb;
     the 8-core host of an NVIDIA H100 80GB HBM3).  Returns [(n_cols,
     q_aln bytes, t_aln bytes)] a lane, as moves_to_alns."""
-    return native.moves_to_alns_lanes(plane, lo, hi, *host)
+    cat, meta = host
+    return native.moves_to_alns_lanes(plane, lo, hi, cat.numpy(),
+                                      *meta.numpy())
 
 
 class DeviceCns:
@@ -285,7 +288,8 @@ class DeviceCns:
         """Queue K2 + K3 over every task, length-bucketed on the ladder and
         length-sorted within a bucket; yields (task indices, (best_i,
         best_j, best_d, packed moves, bases) on the device, the batch's
-        host pack_tasks arrays) per batch."""
+        host pack_tasks tensors) per batch.  On the card the two tensors
+        are page-locked and copied without waiting for the stream."""
         buckets = {}
         for idx, (qc, tc) in enumerate(tasks):
             m = max(len(qc), len(tc), 1)
@@ -297,11 +301,11 @@ class DeviceCns:
             B = self._batch_for(L)
             for ofs in range(0, len(idxs), B):
                 chunk = idxs[ofs:ofs + B]
-                host = pack_tasks(tasks, chunk, len(chunk), L)
-                packed = [trace.to_device(a, self.device) for a in host]
+                host = pack_tasks(tasks, chunk, len(chunk), self.device)
+                cat, meta = (trace.to_device(a, self.device) for a in host)
                 with trace.span("cns.launch"):
-                    q, t = gather_pad2(*packed, L, 4, 5)
-                    out = self._align_tb(q, packed[2], t, packed[4])
+                    q, t = gather_pad2(cat, *meta, L, 4, 5)
+                    out = self._align_tb(q, meta[1], t, meta[3])
                 yield chunk, out, host
 
     def dispatch_tasks(self, tasks):
@@ -309,7 +313,7 @@ class DeviceCns:
 
         tasks: [(q_codes, t_codes)].  Returns the in-flight list for
         collect_tasks: (task indices, (best_d, packed moves laid out
-        lane-major [B, P], the host pack_tasks arrays)) per batch, the
+        lane-major [B, P], the host pack_tasks tensors)) per batch, the
         device tensors kept referenced until they are copied back.  K3
         writes the moves [P, B]; the device transposes each batch's plane
         after its K3, so that the copy back lands a task's row at a time,
@@ -490,11 +494,17 @@ class DeviceCns:
         alignments (K2 + K3) folded into the counts (K4), the scan (K5)
         and the walk (K6).  sub: indices into chunk (len <= G; the padded
         groups stay empty).  Returns (sub, emitted rows, counts, number of
-        alignment tasks, CUDA event after the walk or None)."""
+        alignment tasks, CUDA event after the walk or None).  Every copy to
+        the card is staged in page-locked memory (trace.host_buffer), so
+        that none waits for the stream."""
         D = self.dp_delta_cap
         dev = self.device
-        seeds = np.full((G, T), 4, np.int8)
-        tlens = np.zeros(G, np.int32)
+        seeds_h = trace.host_buffer((G, T), torch.int8, dev)
+        tlens_h = trace.host_buffer(G, torch.int32, dev)
+        seeds = seeds_h.numpy()
+        tlens = tlens_h.numpy()
+        seeds.fill(4)
+        tlens.fill(0)
         tasks, gidx, s2s = [], [], []
         for g, ci in enumerate(sub):
             _, seed_seq, sups = chunk[ci]
@@ -517,16 +527,20 @@ class DeviceCns:
                 s2s.append(s2)
         with trace.span("cns.launch"):
             msa = cns_dp.alloc_msa(G, T, D, dev)
-        seeds = trace.to_device(seeds, dev)
-        tlens = trace.to_device(tlens, dev)
+        seeds = trace.to_device(seeds_h, dev)
+        tlens = trace.to_device(tlens_h, dev)
         with trace.span("cns.launch"):
             cns_dp.add_self_tags(msa, seeds, tlens, T)
         max_diff = np.float32(1.0 - cfg.min_idt)
         gidx = np.asarray(gidx, np.int32)
         s2s = np.asarray(s2s, np.int32)
         for rows, (_, _, bd, mvp, bases), _ in self._align_batches(tasks):
-            g = trace.to_device(gidx[rows], dev)
-            s2 = trace.to_device(s2s[rows], dev)
+            # each K4's groups and seed starts, in one block
+            rows_h = trace.host_buffer((2, len(rows)), torch.int32, dev)
+            blk = rows_h.numpy()
+            np.take(gidx, rows, out=blk[0])
+            np.take(s2s, rows, out=blk[1])
+            g, s2 = trace.to_device(rows_h, dev)
             with trace.span("cns.launch"):
                 dpk.accumulate_tags_planes_cuda(msa, mvp, bases, bd, g, s2,
                                                 max_diff, T, D)

@@ -187,8 +187,7 @@ def gather_pad2(cat, q_offs, q_lens, t_offs, t_lens, L, fill_q, fill_t):
 
     def one(offs, lens, fill):
         idx = (offs.long()[:, None] + ar).clamp_max(cap)
-        return torch.where(ar < lens[:, None], cat[idx], trace.to_device(
-            torch.tensor(fill, dtype=torch.int8), cat.device))
+        return torch.where(ar < lens[:, None], cat[idx], fill)
 
     return one(q_offs, q_lens, fill_q), one(t_offs, t_lens, fill_t)
 
@@ -226,10 +225,15 @@ def pack_flat_2bit(flat_u8):
     return (d.reshape(-1, 16) << shifts).sum(axis=1, dtype=np.uint32)
 
 
-def pack_tasks(tasks, idxs, B, L):
-    """Host side of gather_pad2 (falcon_tpu _pack_tasks): one concatenate
-    of the tasks' q/t slices into a [2*B*L + 1] buffer, plus offset and
-    length vectors padded to B rows."""
+def pack_tasks(tasks, idxs, B, device="cpu"):
+    """Host side of gather_pad2 (falcon_tpu _pack_tasks, less its
+    padding): the tasks' q/t codes concatenated into one int8 buffer of
+    the bytes they use and one zero byte after them, the last that
+    gather_pad2's clamp reads (falcon_tpu's buffer is 2*B*L + 1 bytes,
+    zeros past the tasks), and one int32 [4, B] block of q offsets, q
+    lengths, t offsets and t lengths, zero past the tasks.  Returns the
+    two as host tensors to copy to `device`, page-locked when it is CUDA
+    (trace.host_buffer)."""
     parts = []
     for idx in idxs:
         qc, tc = tasks[idx]
@@ -239,15 +243,20 @@ def pack_tasks(tasks, idxs, B, L):
     lens = np.fromiter((len(p) for p in parts), dtype=np.int64, count=n)
     offs = np.zeros(n + 1, np.int64)
     np.cumsum(lens, out=offs[1:])
-    cat = np.zeros(2 * B * L + 1, np.uint8)
+    used = int(offs[-1])
+    cat = trace.host_buffer(used + 1, torch.int8, device)
+    codes = cat.numpy().view(np.uint8)
     if n:
-        np.concatenate(parts, out=cat[:offs[-1]])
-    out = np.zeros((4, B), np.int32)
-    out[0, :n // 2] = offs[0:n:2]
-    out[1, :n // 2] = lens[0::2]
-    out[2, :n // 2] = offs[1:n:2]
-    out[3, :n // 2] = lens[1::2]
-    return cat.view(np.int8), out[0], out[1], out[2], out[3]
+        np.concatenate(parts, out=codes[:used])
+    codes[used] = 0
+    meta = trace.host_buffer((4, B), torch.int32, device)
+    m = meta.numpy()
+    m[:, n // 2:] = 0
+    m[0, :n // 2] = offs[0:n:2]
+    m[1, :n // 2] = lens[0::2]
+    m[2, :n // 2] = offs[1:n:2]
+    m[3, :n // 2] = lens[1::2]
+    return cat, meta
 
 
 class DeviceExtender:

@@ -82,7 +82,10 @@ def _add_at(msa, idx):
 def add_self_tags(msa, seeds, tlens, T):
     """The seed's identity alignment as delta-0 tags: each column t <
     tlen gets one tag of (base, pred class 0*5 + previous base; start at
-    t = 0).  seeds [G, T] int8 codes (pad 4), tlens [G] int32."""
+    t = 0).  seeds [G, T] int8 codes (pad 4), tlens [G] int32.  One add
+    of fixed shape over every (g, t), of 1 where t < tlen and 0 past it
+    (mod 2^16, as _add_at), so that nothing waits for the device to learn
+    a shape."""
     G = seeds.shape[0]
     dev = seeds.device
     c = seeds.to(torch.int64).clamp_max(4)
@@ -91,7 +94,8 @@ def add_self_tags(msa, seeds, tlens, T):
     code = c * NPC0 + torch.where(t_ar == 0, NPC0 - 1, prev)
     idx = (torch.arange(G, device=dev)[:, None] * T + t_ar) * (5 * NPC0) \
         + code
-    _add_at(msa, idx[t_ar < tlens[:, None].to(torch.int64)])
+    tag = (t_ar < tlens[:, None].to(torch.int64)).to(torch.int16)
+    msa.view(torch.int16).index_add_(0, idx.reshape(-1), tag.reshape(-1))
     return msa
 
 

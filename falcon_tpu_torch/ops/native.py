@@ -295,7 +295,8 @@ def moves_to_alns_lanes(plane, lo, hi, cat, q_offs, q_lens, t_offs, t_lens):
     """moves_to_alns over lanes lo..hi of one batch whose tasks' codes one
     buffer holds, read where they lie: plane the batch's packed moves laid
     out lane-major, [B, P]; cat the codes and, a lane, the offsets and
-    lengths of its q and t in cat (ops.align_device.pack_tasks's arrays).
+    lengths of its q and t in cat (the numpy views of
+    ops.align_device.pack_tasks's tensors).
     Returns [(n_cols, q_aln bytes, t_aln bytes)] a lane."""
     import numpy as np
     if not (0 <= lo < hi <= min(plane.shape[0], len(q_offs))):

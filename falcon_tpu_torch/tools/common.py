@@ -7,6 +7,7 @@ import time
 import torch
 
 from ..ops import align_cuda, align_tb_cuda, cns_dp_cuda
+from ..utils import trace
 from ..utils.device import resolve_device
 
 
@@ -69,10 +70,10 @@ class Stages:
         self.launches[name].update(launches_since(before))
 
     def h2d(self, *arrays):
-        """Each numpy array as a tensor on the device, one copy each, in
-        the stage "h2d"."""
+        """Each host array (numpy or tensor) on the device, one copy each
+        (trace.to_device), in the stage "h2d"."""
         with self("h2d"):
-            out = [torch.from_numpy(a).to(self.dev) for a in arrays]
+            out = [trace.to_device(a, self.dev) for a in arrays]
         self.h2d_copies += len(arrays)
         return out
 

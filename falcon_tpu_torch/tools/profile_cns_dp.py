@@ -10,8 +10,9 @@ are its own:
             building with the host range (DeviceCns._host_range) of every
             support that carries none, the alignment batches' length
             buckets and pack_tasks
-  h2d       every torch.from_numpy(...).to(device): seeds and lengths,
-            each alignment batch's packed tasks, each batch's group and
+  h2d       every copy to the device: seeds and lengths, each alignment
+            batch's packed tasks (pack_tasks' two tensors, page-locked on
+            the card as production stages them) and its block of group and
             seed-start rows (h2d_copies counts them)
   alloc     the zeroed count buffer (cns_dp.alloc_msa)
   selftags  the seeds' own tags (cns_dp.add_self_tags)
@@ -180,13 +181,13 @@ def staged_batch(dev, st, chunk, sub, G, T, cfg, out):
         for ofs in range(0, len(idxs), B):
             rows = idxs[ofs:ofs + B]
             with st("hostprep"):
-                host = pack_tasks(tasks, rows, len(rows), L)
-            packed = st.h2d(*host)
+                host = pack_tasks(tasks, rows, len(rows), dev.device)
+            cat, meta = st.h2d(*host)
             with st("align"):
-                q, t = gather_pad2(*packed, L, 4, 5)
-                _, _, bd, mvp, bases = dev._align_tb(q, packed[2], t,
-                                                     packed[4])
-            gi, s2 = st.h2d(gidx[rows], s2s[rows])
+                q, t = gather_pad2(cat, *meta, L, 4, 5)
+                _, _, bd, mvp, bases = dev._align_tb(q, meta[1], t, meta[3])
+            (blk,) = st.h2d(np.stack([gidx[rows], s2s[rows]]))
+            gi, s2 = blk
             with st("acc"):
                 dpk.accumulate_tags_planes_cuda(msa, mvp, bases, bd, gi, s2,
                                                 max_diff, T, D)

@@ -21,10 +21,12 @@ span opened with clock=True still measures its own duration
 (`sp.seconds`), for a log line, without being recorded.
 
 Every host-to-device copy of the hot path goes through to_device and
-every device-to-host one through to_host, which make the same blocking
-copy as a bare .to() / .cpu() (a pageable source waits for the stream)
-under a copy.h2d / copy.d2h span with its bytes, and for h2d the bytes
-that were pageable.
+every device-to-host one through to_host, which make the same copy as a
+bare .to() / .cpu() under a copy.h2d / copy.d2h span with its bytes, and
+for h2d the bytes that were pageable.  A pageable source waits for the
+stream; a page-locked one (host_buffer) is copied non_blocking, and
+PyTorch's caching host allocator keeps its block from reuse until the
+copy has run.
 
 append_to_chrome_trace adds spans to an exported torch.profiler trace as
 "ftt" events on the trace's own base, so that they line up with the
@@ -187,20 +189,32 @@ def records(since=0):
     return _RECORDS[since:]
 
 
+def host_buffer(shape, dtype, device):
+    """An uninitialised host tensor to fill and hand to to_device:
+    page-locked when `device` is CUDA, so that the copy does not wait for
+    the stream, plain otherwise.  Write it through its .numpy() view, and
+    upload the tensor itself (a tensor made anew from that view is not the
+    allocator's block, and its copy would not hold the block)."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
 def to_device(x, device, dtype=None):
     """x (a numpy array or a tensor) on `device`, as x.to(device, dtype)
-    makes it; a copy from the host is a copy.h2d span (on a CPU device
-    nothing moves, and the span still counts what was handed over)."""
+    makes it, non_blocking from page-locked memory; a copy from the host
+    is a copy.h2d span (on a CPU device nothing moves, and the span still
+    counts what was handed over)."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
     if x.device.type != "cpu":
         return x.to(device, dtype)
+    pinned = x.is_pinned()
     sp = span("copy.h2d")
     with sp:
-        out = x.to(device, dtype)
+        out = x.to(device, dtype, non_blocking=pinned)
     if sp is not NOOP:
         n = x.nbytes
-        sp.add(bytes=n, pageable=0 if x.is_pinned() else n)
+        sp.add(bytes=n, pageable=0 if pinned else n)
     return out
 
 

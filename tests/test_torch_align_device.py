@@ -197,6 +197,9 @@ def test_gather_specs2_packed_matches_jax():
 
 
 def test_pack_tasks_and_gather_pad2_match_jax():
+    """The port's buffer is falcon_tpu's up to its used bytes and the one
+    zero byte after them (falcon_tpu's is zero from there to 2*B*L + 1);
+    the offsets, the lengths and the gathered planes are falcon_tpu's."""
     rng = np.random.RandomState(4)
     tasks = [(rng.randint(0, 5, rng.randint(0, 200)).astype(np.uint8),
               rng.randint(0, 5, rng.randint(0, 200)).astype(np.uint8))
@@ -204,12 +207,17 @@ def test_pack_tasks_and_gather_pad2_match_jax():
     idxs = list(range(0, 12, 2))
     B, L = 8, 256
     ref = jad._pack_tasks(tasks, idxs, B, L)
-    got = tad.pack_tasks(tasks, idxs, B, L)
-    for g, r in zip(got, ref):
+    cat, meta = tad.pack_tasks(tasks, idxs, B)
+    n = sum(len(q) + len(t) for q, t in (tasks[i] for i in idxs))
+    assert cat.dtype == torch.int8 and cat.shape == (n + 1,)
+    assert meta.dtype == torch.int32 and meta.shape == (4, B)
+    np.testing.assert_array_equal(cat.numpy(), ref[0][:n + 1])
+    assert not ref[0][n:].any()
+    for g, r in zip(meta.numpy(), ref[1:]):
         np.testing.assert_array_equal(g, r)
     rq, rt = jad._gather_pad2(*[jnp.asarray(a) for a in ref], L=L,
                               fill_q=4, fill_t=5)
-    gq, gt = tad.gather_pad2(*[torch.from_numpy(a) for a in got], L, 4, 5)
+    gq, gt = tad.gather_pad2(cat, *meta, L, 4, 5)
     np.testing.assert_array_equal(gq.numpy(), np.asarray(rq))
     np.testing.assert_array_equal(gt.numpy(), np.asarray(rt))
 

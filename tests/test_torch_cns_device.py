@@ -7,6 +7,7 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 from falcon_tpu.cns import device as jdev
 from falcon_tpu.cns import runner
@@ -231,6 +232,46 @@ def test_collect_tasks_on_a_pool_matches_serial(monkeypatch, rebuild_case,
     assert got == serial == ref
 
 
+@pytest.mark.parametrize("lens,pad", [
+    ([(700, 650)], 0),                            # a batch of one row
+    ([(700, 650)], 5),                            # and rows past it
+    ([(1024, 1024), (1024, 3), (0, 1024)], 0),    # the rung's full length
+    ([(1024, 1024)] * 4, 2),
+    ([(10 + 97 * k, 1024 - 61 * k) for k in range(11)], 0),   # ragged
+])
+def test_trimmed_pack_gathers_the_padded_planes(lens, pad):
+    """pack_tasks' buffer of the used bytes and one, with gather_pad2's
+    scalar fills, gives the [B, L] q and t planes that falcon_tpu gathers
+    from its 2*B*L + 1-byte buffer with fill tensors (L 1024), and the same
+    offsets and lengths; at its offsets the walk reads each task's own
+    codes."""
+    from falcon_tpu.ops import align_device as jad
+    from falcon_tpu_torch.ops.align_device import gather_pad2, pack_tasks
+    import jax.numpy as jnp
+    rng = np.random.RandomState(len(lens) + pad)
+    tasks = [(rng.randint(0, 5, q).astype(np.uint8),
+              rng.randint(0, 5, t).astype(np.uint8)) for q, t in lens]
+    idxs = list(range(len(tasks)))[::-1]
+    B, L = len(tasks) + pad, 1024
+    ref = jad._pack_tasks(tasks, idxs, B, L)
+    cat, meta = pack_tasks(tasks, idxs, B)
+    assert len(ref[0]) == 2 * B * L + 1
+    assert cat.numel() == sum(q + t for q, t in lens) + 1
+    for g, r in zip(meta.numpy(), ref[1:]):
+        np.testing.assert_array_equal(g, r)
+    rq, rt = jad._gather_pad2(*[jnp.asarray(a) for a in ref], L=L,
+                              fill_q=4, fill_t=5)
+    gq, gt = gather_pad2(cat, *meta, L, 4, 5)
+    assert gq.dtype == gt.dtype == torch.int8
+    np.testing.assert_array_equal(gq.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(rt))
+    codes = cat.numpy().view(np.uint8)
+    qo, ql, to, tl = meta.numpy()
+    for k, i in enumerate(idxs):
+        np.testing.assert_array_equal(codes[qo[k]:qo[k] + ql[k]], tasks[i][0])
+        np.testing.assert_array_equal(codes[to[k]:to[k] + tl[k]], tasks[i][1])
+
+
 def test_walk_lanes_matches_moves_to_alns():
     """walk_lanes on a lane-major plane and the batch's host pack equals
     the copied binding's moves_to_alns on the same plane [P, B] and the
@@ -245,7 +286,7 @@ def test_walk_lanes_matches_moves_to_alns():
     tasks = [(rng.randint(0, 5, 4 * P + k).astype(np.uint8),
               rng.randint(0, 5, 4 * P + 3 * k).astype(np.uint8))
              for k in range(B)]
-    host = pack_tasks(tasks, list(range(B)), B, 2048)
+    host = pack_tasks(tasks, list(range(B)), B)
     for lo, hi in [(0, 3), (3, 12), (5, 6), (0, 12), (11, 12)]:
         want = tdev.native.moves_to_alns(
             plane.T, np.arange(lo, hi, dtype=np.int32),

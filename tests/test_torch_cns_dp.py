@@ -24,6 +24,7 @@ from falcon_tpu_torch.cns import device as tdev
 from falcon_tpu_torch.ops import cns_dp as tdp
 from falcon_tpu_torch.ops import cns_dp_cuda as k
 from falcon_tpu_torch.ops.align_tb_cuda import align_tb_batch_cuda
+from falcon_tpu_torch.utils import trace
 
 from chip_smoke import tag_rows, walk_cases
 from tests.test_cns_dp import CFG, make_group, noisy
@@ -93,17 +94,51 @@ def test_accumulate_tags_matches_jax(err, seed):
     assert int(got[-1]) == 0          # the port drops dead tags
 
 
-def test_add_self_tags_matches_jax():
-    rng = np.random.RandomState(5)
-    G, T = 3, 64
+def _add_self_tags_masked(msa, seeds, tlens, T):
+    """add_self_tags as it was: the tags of t < tlen picked out by a
+    boolean mask, then _add_at (unique indices and their counts)."""
+    G = seeds.shape[0]
+    c = seeds.to(torch.int64).clamp_max(4)
+    prev = torch.nn.functional.pad(c[:, :-1], (1, 0))
+    t_ar = torch.arange(T)
+    code = c * tdp.NPC0 + torch.where(t_ar == 0, tdp.NPC0 - 1, prev)
+    idx = (torch.arange(G)[:, None] * T + t_ar) * (5 * tdp.NPC0) + code
+    tdp._add_at(msa, idx[t_ar < tlens[:, None].to(torch.int64)])
+    return msa
+
+
+@pytest.mark.parametrize("seed,T,tlens,before", [
+    (5, 64, [64, 17, 0], False),
+    (6, 32, [32], False),                        # one group, tlen == T
+    (7, 128, [128, 0, 0, 1, 127, 64, 0, 128], False),  # padded groups
+    (8, 64, [64, 30, 0, 1], True),               # counts there before
+])
+def test_add_self_tags_matches_jax(seed, T, tlens, before):
+    """The fixed-shape add equals falcon_tpu's one-hot add and the masked
+    form it replaced, bit for bit: groups of tlen 0 (a DP batch's padded
+    groups), tlen == T, a G of 1, and a buffer that already holds counts
+    (the mesh's consensus split adds the seeds' tags after K4's sum), some
+    at 0xFFFF so that the add wraps."""
+    rng = np.random.RandomState(seed)
+    G = len(tlens)
     seeds = rng.randint(0, 5, (G, T)).astype(np.int8)
-    tlens = np.array([64, 17, 0], np.int32)
-    ref = jdp.add_self_tags(jdp.alloc_msa(G, T, D), jnp.asarray(seeds),
+    tlens = np.array(tlens, np.int32)
+    msa0 = np.zeros(tdp.msa_size(G, T, D), np.uint16)
+    if before:
+        msa0[:] = rng.randint(0, 4, msa0.shape)
+        msa0[rng.randint(0, len(msa0), len(msa0) // 3)] = 0xFFFF
+    ref = jdp.add_self_tags(jnp.asarray(msa0), jnp.asarray(seeds),
                             jnp.asarray(tlens), T)
-    got = tdp.add_self_tags(tdp.alloc_msa(G, T, D, "cpu"),
-                            torch.from_numpy(seeds), torch.from_numpy(tlens),
-                            T)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+    def port(fn):
+        msa = torch.from_numpy(msa0.view(np.int16).copy()).view(torch.uint16)
+        return fn(msa, torch.from_numpy(seeds), torch.from_numpy(tlens),
+                  T).view(torch.int16).numpy().view(np.uint16)
+
+    got = port(tdp.add_self_tags)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    np.testing.assert_array_equal(got, port(_add_self_tags_masked))
+    assert (got != msa0).sum() > 0
 
 
 def _scan_eq(ref_msa, got_msa, G, T):
@@ -220,6 +255,51 @@ def test_dp_consensus_chunk_matches_jax():
     got = dev.consensus_chunk(chunk, cfg)
     assert got == ref
     assert sorted(dev.dp_batches) == [1024, 2048, 4096, 8192]
+
+
+def test_dp_dispatch_copies_only_what_is_read(monkeypatch):
+    """The copies one DP chunk's dispatch makes, counted on the CPU (where
+    a copy.h2d span counts what to_device hands over, none of it pinned):
+    a DP batch's seeds and lengths, then per K2 batch the tasks' used
+    bytes and one, its [4, B] block and K4's [2, B] block; no fill
+    values."""
+    rng = np.random.RandomState(8)
+    cfg = runner.ConsensusConfig(**CFG)
+    chunk = []
+    for i, n in enumerate((1500, 900, 1000)):
+        truth = rng.randint(0, 4, n).astype(np.uint8)
+        g = tdev.gate_group_ranged(
+            "%09d" % i, make_group(truth, 6, 0.08, rng, seed_id="%09d" % i),
+            cfg)
+        chunk.append(("%09d" % i, g[0], g[1]))
+    want = []
+    alloc, pack = tdp.alloc_msa, tdev.pack_tasks
+
+    def alloc_seen(G, T, D, dev):
+        want.extend([G * T, 4 * G])
+        return alloc(G, T, D, dev)
+
+    def pack_seen(tasks, idxs, B, dev):
+        cat, meta = pack(tasks, idxs, B, dev)
+        used = sum(len(q) + len(t) for q, t in (tasks[i] for i in idxs))
+        assert cat.numel() == used + 1 and meta.shape == (4, B)
+        want.extend([used + 1, 16 * B, 8 * len(idxs)])
+        return cat, meta
+
+    monkeypatch.setattr(tdp, "alloc_msa", alloc_seen)
+    monkeypatch.setattr(tdev, "pack_tasks", pack_seen)
+    dev = tdev.DeviceCns(device="cpu", use_dp=True)
+    dev.max_rows = 6
+    with trace.recording() as got:
+        state = dev.dispatch_chunk_dp(chunk, cfg)
+    h2d = [s.counts for s in got if s.name == "copy.h2d"]
+    assert [c["bytes"] for c in h2d] == want
+    assert all(c["pageable"] == c["bytes"] for c in h2d)
+    # a DP batch at T 1024 of two groups' 10 tasks in K2 batches of 6 and
+    # 4 rows, and one at T 2048 of 5 tasks in one
+    assert sorted(dev.dp_batches) == [1024, 2048]
+    assert len(want) == 2 * 2 + 3 * 3
+    assert all(len(cns) > 800 for _, cns in dev.finish_chunk_dp(state))
 
 
 def test_run_consensus_device_dp_matches_jax():

@@ -487,15 +487,11 @@ def test_copy_helper_counts_pageable_and_pinned_bytes(rng):
     assert back.tolist() == list(range(333))
 
 
-def test_dp_dispatch_spans_on_the_card(rng):
-    """run_consensus_device on the DP path with four groups a DP batch
-    (dp_budget 1): the in-flight bound waits (cns.wait_device) from the
-    third batch on, and every copy the dispatch makes is pageable."""
-    import io
-    from falcon_tpu_torch.cns.device import run_consensus_device
-    from falcon_tpu_torch.cns.runner import ConsensusConfig
+def _small_groups(rng, n, first=0):
+    """n seed groups of 900 bases, each with four ranged supports at 3%
+    substitutions, ids from `first`."""
     groups = []
-    for g in range(12):
+    for g in range(first, first + n):
         truth = rng.integers(0, 4, 900).astype(np.uint8)
         items = [("%09d" % (10 * g), truth, None)]
         for k in range(4):
@@ -504,18 +500,97 @@ def test_dp_dispatch_spans_on_the_card(rng):
             sup[hit] = (sup[hit] + 1) % 4
             items.append(("%09d" % (10 * g + k + 1), sup, (0, 900, 0, 900)))
         groups.append((items[0][0], items))
-    cfg = ConsensusConfig(min_cov=2, min_idt=0.70, min_n_read=2,
-                          min_cov_aln=2)
+    return groups
+
+
+def _small_cfg():
+    from falcon_tpu_torch.cns.runner import ConsensusConfig
+    return ConsensusConfig(min_cov=2, min_idt=0.70, min_n_read=2,
+                           min_cov_aln=2)
+
+
+def _chunk(groups, cfg):
+    from falcon_tpu_torch.cns.device import gate_group_ranged
+    return [(sid, *gate_group_ranged(sid, items, cfg))
+            for sid, items in groups]
+
+
+def _paths(dev):
+    """(dispatch, finish) of the device's path, the host MSA on the
+    finisher's own thread."""
+    if dev.use_dp:
+        return dev.dispatch_chunk_dp, dev.finish_chunk_dp
+    return dev.dispatch_chunk, dev.finish_chunk
+
+
+def test_dp_dispatch_spans_on_the_card(rng):
+    """run_consensus_device on the DP path with four groups a DP batch
+    (dp_budget 1): the in-flight bound waits (cns.wait_device) from the
+    third batch on, and every copy the dispatch makes is from page-locked
+    memory."""
+    import io
+    from falcon_tpu_torch.cns.device import run_consensus_device
+    groups = _small_groups(rng, 12)
     dev = DeviceCns(device="cuda", use_dp=True, dp_budget=1,
                     chunk_tasks=10 ** 6)
     with trace.recording() as got:
-        n = run_consensus_device(iter(groups), cfg, io.StringIO(), dev=dev)
+        n = run_consensus_device(iter(groups), _small_cfg(), io.StringIO(),
+                                 dev=dev)
     assert n == 12 and sum(dev.dp_batches.values()) == 3
     names = [s.name for s in got]
     assert names.count("cns.wait_device") == 1
     assert names.count("cns.dispatch") == names.count("cns.finish") == 1
     h2d = [s.counts for s in got if s.name == "copy.h2d"]
-    assert h2d and all(c["bytes"] == c["pageable"] > 0 for c in h2d)
+    assert h2d and all(c["bytes"] > 0 and c["pageable"] == 0 for c in h2d)
+
+
+@pytest.mark.parametrize("use_dp", [True, False])
+def test_dispatch_waits_for_nothing_on_the_card(rng, use_dp):
+    """A chunk's dispatch, on the DP path (two DP batches: under the
+    in-flight bound's wait) and on the host-MSA path, makes no call that
+    synchronises with the card: torch.cuda.set_sync_debug_mode("error")
+    raises on any.  A first chunk builds the kernels; both give the same
+    consensus."""
+    cfg = _small_cfg()
+    chunk = _chunk(_small_groups(rng, 8), cfg)
+    dev = DeviceCns(device="cuda", use_dp=use_dp, dp_budget=1)
+    dispatch, finish = _paths(dev)
+    want = finish(dispatch(chunk, cfg))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = dispatch(chunk, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert finish(state) == want
+    assert all(len(cns) > 800 for _, cns in want)
+
+
+@pytest.mark.parametrize("use_dp", [True, False])
+def test_staging_outlives_its_copy_on_the_card(rng, use_dp):
+    """Two chunks of the same shapes dispatched back to back behind ~1 s
+    of torch.cuda._sleep: the stream is still asleep when both are queued,
+    so every staging block of the first chunk waits for its copy while the
+    second packs blocks of the same sizes; one reused before its copy ran
+    would change the preads.  They equal an undelayed run's and the CPU
+    twin's."""
+    cfg = _small_cfg()
+    chunks = [_chunk(_small_groups(rng, 8, first), cfg) for first in (0, 8)]
+
+    def run(device, delay=False):
+        dev = DeviceCns(device=device, use_dp=use_dp, dp_budget=1)
+        dispatch, finish = _paths(dev)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            if delay:
+                torch.cuda._sleep(2 * 10 ** 9)
+        states = [dispatch(c, cfg) for c in chunks]
+        if delay:
+            assert not torch.cuda.current_stream().query()
+        return [finish(st) for st in states]
+
+    plain = run("cuda")
+    assert run("cuda", delay=True) == plain == run("cpu")
 
 
 def test_collect_tasks_on_a_pool_matches_serial_on_the_card(rng):

@@ -120,9 +120,10 @@ def test_profile_cns_dp_matches_production():
     assert set(res["stages_s"]) == {
         "hostprep", "h2d", "alloc", "selftags", "align", "acc", "scan",
         "walk", "fetch", "hostasm"}
-    # seeds + lengths, five packed arrays and two rows a batch
+    # seeds + lengths a DP batch; the packed codes, their [4, B] block
+    # and K4's [2, B] block a K2 batch
     assert res["h2d_copies"] == 2 * res["dp_batches"] + \
-        7 * res["stage_calls"]["align"]
+        3 * res["stage_calls"]["align"]
     assert res["sum_stage_s"] == pytest.approx(sum(res["stages_s"].values()))
 
 

@@ -283,6 +283,23 @@ def test_copy_counts_match_the_arrays(dp_consensus):
                        for s in h2d)
 
 
+@pytest.mark.parametrize("shape,dtype", [((4, 9), torch.int32),
+                                         (17, torch.int8)])
+def test_host_buffer_is_plain_memory_for_the_cpu(shape, dtype):
+    """A staging buffer for a CPU device is an ordinary host tensor, filled
+    through its numpy view; to_device hands it over as pageable, the
+    tensor itself."""
+    buf = trace.host_buffer(shape, dtype, torch.device("cpu"))
+    assert not buf.is_pinned() and buf.dtype == dtype
+    assert buf.shape == torch.Size(shape if isinstance(shape, tuple)
+                                   else (shape,))
+    buf.numpy()[...] = 3
+    with trace.recording() as got:
+        out = trace.to_device(buf, "cpu")
+    assert out is buf and int(out.sum()) == 3 * buf.numel()
+    assert got[0].counts == {"bytes": buf.nbytes, "pageable": buf.nbytes}
+
+
 def test_carry_records_on_another_thread():
     """A profiler window is open on its own thread only: work handed to
     another thread records there through carry(), and not without it."""
